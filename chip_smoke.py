@@ -21,8 +21,24 @@ Phases, in order; any failure exits non-zero:
    path in fp32 within atol 2e-3 (post-LN values are O(1); 12 layers and a
    different summation order separate the two), with zero compile misses,
    exactly 12 kernel launches per micro-batch, and no plain-attention call
-   on a CUDA tensor.
+   on a CUDA tensor;
+5. rtc: ``mx.rtc`` compiles ``double_k`` (through ``compile_cuda``) and
+   MXNet's ``axpy`` example (through ``CudaModule``) with NVRTC, runs them
+   once as a user would (``double_k`` on (8, 128), ``axpy`` at 8x64x112x112,
+   ResNet-50's largest activation), holds both bitwise against their plain
+   torch expressions, and times ``axpy`` beside ``y + alpha * x``,
+   ``y.add_(x, alpha=alpha)`` and its memory bound;
+6. resnet: ResNet-50 v1 (1000 classes, seeded random weights and BatchNorm
+   statistics, carried onto the card through a ``.params`` file) behind
+   ``ModelRuntime`` (buckets 1, 2, 4, 8) and ``Batcher``, answering 16
+   requests of (3, 224, 224) fp32 from 4 client threads.  Every answer must
+   match the same weights run on the CPU plain path within
+   1e-3 * max|logit| (TF32 off), be finite with std > 0, with zero compile
+   misses.  ResNet-50 runs no kernel of the port: cuDNN convolutions and
+   BatchNorm and cuBLAS carry it through torch, as XLA carries it in the JAX
+   package.
 
+Phases 4 and 6 print a ``[profile]`` breakdown of one bucket-8 micro-batch.
 The last two lines are the kernels' JSON record and the device line.
 """
 from __future__ import annotations
@@ -34,6 +50,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,6 +60,9 @@ SEQ = 128
 N_REQUESTS = 16
 N_CLIENTS = 4
 SLICE_QKV = (8, 12, SEQ, 64)           # bucket 8 of bert_base: (B, H, T, D)
+IMAGE = (3, 224, 224)
+AXPY_SHAPE = (8, 64, 112, 112)         # bucket 8 of ResNet-50's stem output
+BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12,    # fp32 outside the tensor cores
               torch.bfloat16: 989e12, torch.float16: 989e12}
@@ -167,10 +187,10 @@ def phase_kernel(fa):
             "library_ms": library_ms}
 
 
-def serve(batcher, tokens, segments):
+def serve(batcher, payloads):
     """All requests from N_CLIENTS threads, each submitting its share at
     once; returns (answers, sorted latencies in ms, wall seconds)."""
-    n = len(tokens)
+    n = len(payloads)
     answers = [None] * n
     t_submit = [0.0] * n
     t_done = [0.0] * n
@@ -180,7 +200,7 @@ def serve(batcher, tokens, segments):
         futs = []
         for i in range(c * per_client, (c + 1) * per_client):
             t_submit[i] = time.perf_counter()
-            fut = batcher.submit((tokens[i], segments[i]))
+            fut = batcher.submit(payloads[i])
             fut.add_done_callback(
                 lambda f, i=i: t_done.__setitem__(i, time.perf_counter()))
             futs.append((i, fut))
@@ -242,11 +262,11 @@ def phase_slice(fa, card):
     telemetry.reset()
     try:
         fa.flash_attention.launches = 0          # main path starts here
-        answers, lat1, wall1 = serve(batcher, tokens, segments)
+        answers, lat1, wall1 = serve(batcher, list(zip(tokens, segments)))
         launches = fa.flash_attention.launches   # main path ends here
         snap = telemetry.snapshot()
         # the same requests again: the batcher's worker thread is warm now
-        _, lat2, wall2 = serve(batcher, tokens, segments)
+        _, lat2, wall2 = serve(batcher, list(zip(tokens, segments)))
     finally:
         fa._reference = real_reference
         batcher.close()
@@ -297,16 +317,18 @@ def phase_slice(fa, card):
     log(f"[slice] round 2 (same requests, warm worker): p50 request latency "
         f"{float(np.median(lat2)):.3f} ms, max {lat2[-1]:.3f} ms, "
         f"{N_REQUESTS / wall2:.2f} requests/s, on {card}")
-    profile_one_batch(rt, tokens, segments)
+    profile_one_batch(rt, [(tokens[i], segments[i]) for i in range(8)])
     return launches
 
 
-def profile_one_batch(rt, tokens, segments):
-    """One bucket-8 micro-batch: host wall time (synchronised, median of 5)
-    and device time by kernel (CUPTI through torch.profiler); prints "not
-    measured" if the trace has no device time."""
+def profile_one_batch(rt, payloads, top=8):
+    """One micro-batch of ``payloads`` through ``rt``: host wall time
+    (synchronised, median of 5) and device time by kernel (CUPTI through
+    torch.profiler); prints "not measured" if the trace has no device
+    time."""
     from torch.autograd import DeviceType
-    rows = [rt._normalize((tokens[i], segments[i])) for i in range(8)]
+    rows = [rt._normalize(p) for p in payloads]
+    bucket = rt.bucket_for(len(rows))
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -324,15 +346,205 @@ def profile_one_batch(rt, tokens, segments):
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
-        log(f"[profile] bucket 8: run_batch {wall_ms:.3f} ms wall; device "
-            f"time not measured (no CUDA events in the trace)")
+        log(f"[profile] {rt.name} bucket {bucket}: run_batch {wall_ms:.3f} "
+            f"ms wall; device time not measured (no CUDA events in the "
+            f"trace)")
         return
-    log(f"[profile] bucket 8: run_batch {wall_ms:.3f} ms wall (median of "
-        f"5), device busy {busy_ms:.3f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    log(f"[profile] {rt.name} bucket {bucket}: run_batch {wall_ms:.3f} ms "
+        f"wall (median of 5), device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, {len(kernels)} kernels, "
+        f"{sum(e.count for e in kernels)} launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+DOUBLE_K = r"""
+extern "C" __global__ void double_k(const float *in0, float *out,
+                                    long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = in0[i] * 2.0f;
+}
+"""
+
+# Apache MXNet's mx.rtc example; AXPY_SHAPE is a multiple of 256 elements
+AXPY = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+"""
+
+
+def phase_rtc(card):
+    """mx.rtc: compile with NVRTC, run as a user would, hold bitwise, time.
+    ``--fmad=false`` keeps NVRTC from fusing ``y + alpha * x`` into one FMA
+    (one rounding where the plain expression rounds twice)."""
+    from mxnet_tpu_torch import rtc
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    double = rtc.compile_cuda(DOUBLE_K, "double_k", ((8, 128), "float32"))
+    t1 = time.perf_counter()
+    module = rtc.CudaModule(AXPY, options=("--fmad=false",))
+    axpy = module.get_kernel("axpy", "const float *x, float *y, float alpha")
+    t2 = time.perf_counter()
+    log(f"[rtc] NVRTC compile + load: double_k {t1 - t0:.3f} s (NVRTC "
+        f"{double.module.compile_seconds:.3f} s), axpy {t2 - t1:.3f} s "
+        f"(NVRTC {module.compile_seconds:.3f} s), {len(module.cubin)} byte "
+        f"cubin for {module.arch}")
+
+    rng = np.random.RandomState(0)
+    x8 = torch.from_numpy(rng.randn(8, 128).astype("float32")).to(dev)
+    x = torch.from_numpy(rng.randn(*AXPY_SHAPE).astype("float32")).to(dev)
+    y0 = torch.from_numpy(rng.randn(*AXPY_SHAPE).astype("float32")).to(dev)
+    alpha = 0.37
+    n = x.numel()
+    grid, block = (n // 256,), (256,)
+    y = y0.clone()
+    rtc.CudaKernel.launches = 0                      # main path starts here
+    doubled = double(x8)
+    axpy.launch([x, y, alpha], dev, grid, block)
+    torch.cuda.synchronize()
+    launches = rtc.CudaKernel.launches               # main path ends here
+    check(launches == 2, f"{launches} rtc launches (want 2)")
+    err = max((doubled - x8 * 2).abs().max().item(),
+              (y - (y0 + alpha * x)).abs().max().item())
+    check(torch.equal(doubled, x8 * 2), "double_k differs from x * 2")
+    check(torch.equal(y, y0 + alpha * x), "axpy differs from y + alpha * x")
+    log(f"[rtc] double_k (8, 128) and axpy {AXPY_SHAPE} fp32 bitwise equal "
+        f"to x * 2 and y + alpha * x ({launches} launches)")
+
+    kernel_ms = device_ms(lambda: axpy.launch([x, y, alpha], dev, grid,
+                                              block))
+    plain_ms = device_ms(lambda: y + alpha * x)
+    library_ms = device_ms(lambda: y.add_(x, alpha=alpha))
+    nbytes = 3 * n * 4                    # read x and y, write y
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * n / PEAK_FLOPS[torch.float32] * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    bound_by = "bytes" if by_bytes >= by_ops else "operations"
+    log(f"[rtc] axpy {AXPY_SHAPE} fp32 ({nbytes / 1e6:.1f} MB moved): "
+        f"kernel {kernel_ms:.4f} ms, plain y + alpha * x {plain_ms:.4f} ms, "
+        f"y.add_(x, alpha) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), on {card}")
+    return {"name": "rtc_axpy", "route": "cuda",
+            "source": "mxnet_tpu_torch/rtc.py",
+            "replaces": "mxnet_tpu/rtc.py:50",
+            "shape": list(AXPY_SHAPE), "dtype": "float32",
+            "launches": launches, "max_abs_err": err,
+            "compile_s": module.compile_seconds, "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _seeded(name, shape, rng):
+    """Seeded values by parameter name: BatchNorm statistics with variance
+    > 0, He-scaled weights; gammas under one keep 16 residual blocks from
+    growing the logits past O(1)."""
+    if name.endswith("running_var"):
+        return rng.uniform(0.5, 1.5, shape)
+    if name.endswith(("running_mean", "beta", "bias")):
+        return rng.normal(0, 0.1, shape)
+    if name.endswith("gamma"):
+        return rng.uniform(0.2, 0.6, shape)
+    return rng.normal(0, math.sqrt(2.0 / math.prod(shape[1:])), shape)
+
+
+def phase_resnet(card):
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.serving import Batcher, ModelRuntime
+
+    # the weights: seeded on the CPU net (a tiny forward fixes the deferred
+    # widths), carried onto the card through a .params file
+    t0 = time.perf_counter()
+    cpu_net = get_model("resnet50_v1", classes=1000, device="cpu").eval()
+    with torch.inference_mode():
+        cpu_net(torch.zeros(1, 3, 32, 32))
+    rng = np.random.RandomState(0)
+    with torch.no_grad():
+        for name, t in sorted(cpu_net._collect_params_with_prefix()
+                              .items()):
+            t.copy_(torch.from_numpy(_seeded(name, tuple(t.shape), rng)
+                                     .astype("float32")))
+    BUILD.mkdir(parents=True, exist_ok=True)
+    path = BUILD / "resnet50_v1.params"
+    cpu_net.save_parameters(str(path))
+    net = get_model("resnet50_v1", classes=1000)   # the default: the GPU
+    net.load_parameters(str(path))
+    n_params = sum(p.numel() for p in net.parameters())
+    check(all(t.is_cuda for t in net._collect_params_with_prefix().values()),
+          "resnet parameters did not land on cuda")
+    log(f"[resnet] resnet50_v1: {n_params} parameters, seeded and loaded "
+        f"onto the card in {time.perf_counter() - t0:.2f} s")
+
+    telemetry.enable()
+    telemetry.reset()
+    t0 = time.perf_counter()
+    rt = ModelRuntime(net, item_shapes=IMAGE, max_batch=8)
+    torch.cuda.synchronize()
+    log(f"[resnet] buckets {rt.buckets} warmed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(rt.buckets == (1, 2, 4, 8), f"buckets {rt.buckets}")
+
+    images = np.random.RandomState(1).randn(N_REQUESTS, *IMAGE) \
+        .astype("float32")
+    batcher = Batcher(rt, max_latency_ms=5)
+    telemetry.reset()
+    try:
+        answers, lat1, wall1 = serve(batcher, list(images))
+        snap = telemetry.snapshot()
+        _, lat2, wall2 = serve(batcher, list(images))
+    finally:
+        batcher.close()
+    counters = snap["counters"]
+    batches = counters.get("serving.batches", 0)
+    log(f"[resnet] {N_REQUESTS} requests in {batches} micro-batches, "
+        f"{counters.get('serving.padded_items', 0)} padded rows, "
+        f"compile_miss {counters.get('serving.compile_miss', 0)}")
+    check(counters.get("serving.batch_items") == N_REQUESTS,
+          f"batch_items {counters.get('serving.batch_items')}")
+    check(counters.get("serving.compile_miss", 0) == 0,
+          "compile miss after warmup")
+
+    from mxnet_tpu_torch.gluon.nn import Conv2D
+    flops = []                 # 2 * outputs * (C_in / groups * kH * kW)
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: flops.append(2 * o.numel() * m.weight[0].numel()))
+        for m in cpu_net.modules() if isinstance(m, Conv2D)]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu_net(torch.from_numpy(images)).numpy()
+    cpu_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    log(f"[resnet] convolutions: {len(flops)} per forward, "
+        f"{sum(flops) * 8 / N_REQUESTS / 1e9:.2f} GFLOP per bucket-8 "
+        f"micro-batch")
+    out = np.stack(answers)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(out - ref).max())
+    log(f"[resnet] vs CPU plain fp32 ({cpu_s:.2f} s): logits max_abs_err "
+        f"{err:.3e}, max|logit| {scale:.3f}, relative {err / scale:.3e} "
+        f"(tol 1e-3), answer std {float(out.std()):.4f}")
+    check(out.shape == (N_REQUESTS, 1000), f"answer shape {out.shape}")
+    check(np.isfinite(out).all(), "non-finite logits")
+    check(all(float(a.std()) > 0 for a in answers), "a constant answer")
+    check(err <= 1e-3 * scale,
+          "served logits disagree with the CPU plain run")
+
+    run = snap["spans"].get("serving.run", {"calls": 0, "total_ms": 0.0})
+    log(f"[resnet] round 1 (main path, fresh worker): p50 request latency "
+        f"{float(np.median(lat1)):.3f} ms, max {lat1[-1]:.3f} ms, "
+        f"{N_REQUESTS / wall1:.2f} requests/s, serving.run "
+        f"{run['total_ms'] / max(run['calls'], 1):.3f} ms per micro-batch, "
+        f"on {card}")
+    log(f"[resnet] round 2 (same requests, warm worker): p50 request "
+        f"latency {float(np.median(lat2)):.3f} ms, max {lat2[-1]:.3f} ms, "
+        f"{N_REQUESTS / wall2:.2f} requests/s, on {card}")
+    profile_one_batch(rt, list(images[:8]), top=10)
+    telemetry.disable()
 
 
 def main():
@@ -347,7 +559,9 @@ def main():
     phase_build()
     record = phase_kernel(fa)
     record["launches"] = phase_slice(fa, card)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    rtc_record = phase_rtc(card)
+    phase_resnet(card)
+    print(json.dumps({"kernels": [record, rtc_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

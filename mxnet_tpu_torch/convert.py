@@ -1,5 +1,10 @@
 """Carry weights from the JAX package's Gluon models into the port.
 
+``load_from_gluon`` carries any Gluon block whose port counterpart has the
+same structure (the ResNets, for one): the JAX block's ``save_parameters``
+writes an MXNet ``.params`` file and the port's ``load_parameters`` reads it
+by structural name, so nothing but the file crosses over.
+
 ``bert_state_dict_from_gluon`` takes a JAX ``BERTModel``'s
 ``collect_params()`` as numpy arrays (``{name: p.data().asnumpy()}``), strips
 the net's own ``prefix`` (``bertmodel0_``; its counter depends on how many
@@ -14,7 +19,16 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["bert_state_dict_from_gluon"]
+__all__ = ["load_from_gluon", "bert_state_dict_from_gluon"]
+
+
+def load_from_gluon(gluon_block, port_block, filename):
+    """Write ``gluon_block``'s parameters to ``filename`` with its own
+    ``save_parameters`` and load them into ``port_block``; deferred shapes
+    in the port take the file's.  Returns ``port_block``."""
+    gluon_block.save_parameters(str(filename))
+    port_block.load_parameters(str(filename))
+    return port_block
 
 # Gluon name (prefix stripped) -> port state-dict key.  The norms are
 # positional inside their scope: the model's first LayerNorm is the

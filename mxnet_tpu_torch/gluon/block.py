@@ -1,20 +1,32 @@
 """``HybridBlock`` on ``torch.nn.Module`` (counterpart of
-``mxnet_tpu/gluon/block.py``, the part the serving slice needs).
+``mxnet_tpu/gluon/block.py``, the part the serving slices need).
 
 PyTorch runs eagerly, so ``hybridize()`` is accepted and changes nothing,
 and "compiling" a bucket ladder (``compile_grid``) means running each bucket
 once under ``torch.inference_mode()`` and remembering its signature, so that
 ``serving.ModelRuntime`` keeps its warmed-shape bookkeeping and its
 ``serving.compile_miss`` counter.
+
+Parameters are ``nn.Parameter``s and non-learned state (BatchNorm's running
+statistics) is a buffer; both go by Gluon's structural names, the dotted
+attribute path (``features.1.running_var``), which is what torch's own
+naming gives.  A layer built with an unknown input width (``in_channels=0``,
+``in_units=0``) holds an uninitialised parameter, Gluon's
+``allow_deferred_init`` (``mxnet_tpu/gluon/parameter.py:28-37``): its shape
+is fixed by the first forward, on the input's device, or by
+``load_parameters``, from the file.  ``initialize()`` fills such a
+parameter when it is materialised.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedTensorMixin
 
+from .. import ndarray
 from ..initializer import Uniform
 
-__all__ = ["HybridBlock", "io_signature"]
+__all__ = ["HybridBlock", "io_signature", "is_deferred"]
 
 
 def io_signature(tensors):
@@ -26,6 +38,16 @@ def io_signature(tensors):
             tuple(str(x.dtype) for x in tensors))
 
 
+def is_deferred(t):
+    """True for a parameter or buffer whose shape is not known yet."""
+    return isinstance(t, UninitializedTensorMixin)
+
+
+def _own_state(module):
+    yield from module.named_parameters(recurse=False)
+    yield from module.named_buffers(recurse=False)
+
+
 class HybridBlock(nn.Module):
     """A Gluon-style block: ``forward`` is the eager body, parameters are
     ``nn.Parameter``s, ``initialize`` fills them from a generator."""
@@ -33,17 +55,89 @@ class HybridBlock(nn.Module):
     def __init__(self):
         super().__init__()
         self._warmed = set()
+        # (init, generator) for parameters that materialise later
+        self._deferred_init = None
 
     def hybridize(self, active=True, **kwargs):
         """Accepted for API parity; eager mode is the only mode."""
 
     def initialize(self, init=None, generator=None):
-        """Fill every parameter with ``init`` (default :class:`Uniform`),
-        dispatching on the parameter's name as MXNet does."""
+        """Fill every parameter and buffer with ``init`` (default
+        :class:`Uniform`), dispatching on its name as MXNet does; a deferred
+        one is filled when it materialises."""
         init = Uniform() if init is None else init
-        for name, p in self.named_parameters():
-            init(name, p.data, generator)
+        for module in self.modules():
+            for name, t in _own_state(module):
+                if is_deferred(t):
+                    module._deferred_init = (init, generator)
+                else:
+                    init(name, t.data, generator)
 
+    def _materialize(self, shapes, device):
+        """Give each deferred ``{attribute: shape}`` its shape on
+        ``device`` and fill it if ``initialize`` was called."""
+        # outside inference mode, so that the new tensors are ordinary ones
+        # even when the first forward runs under ``compile_grid``
+        with torch.inference_mode(False):
+            for name, shape in shapes.items():
+                t = getattr(self, name)
+                if not is_deferred(t):
+                    continue
+                t.materialize(tuple(shape), device=device)
+                if self._deferred_init is not None:
+                    init, generator = self._deferred_init
+                    init(name, t.data, generator)
+
+    # ------------------------------------------------------------ parameters
+    def _collect_params_with_prefix(self):
+        """``{structural name: parameter or buffer}``, the names
+        ``save_parameters`` writes (``mxnet_tpu/gluon/block.py:244``)."""
+        out = dict(self.named_parameters())
+        out.update(self.named_buffers())
+        return out
+
+    def save_parameters(self, filename):
+        """Write every parameter and buffer to an MXNet ``.params`` file
+        under its structural name (``mxnet_tpu/gluon/block.py:252``)."""
+        params = self._collect_params_with_prefix()
+        deferred = [k for k, v in params.items() if is_deferred(v)]
+        if deferred:
+            raise RuntimeError(
+                f"parameters {deferred[:4]} have no shape yet (deferred); run "
+                f"a forward or load_parameters before saving")
+        ndarray.save(filename, {k: v.detach() for k, v in params.items()})
+
+    def load_parameters(self, filename):
+        """Load a file written by ``save_parameters`` (this package's or the
+        JAX package's; ``mxnet_tpu/gluon/block.py:276``).  Names must match
+        exactly.  Each value lands on its parameter's device; a deferred
+        parameter takes the file's shape there.  Dtypes must match."""
+        loaded = ndarray.load(filename)
+        if not isinstance(loaded, dict):
+            raise ValueError(f"{filename} holds unnamed arrays")
+        params = self._collect_params_with_prefix()
+        missing = [k for k in params if k not in loaded]
+        extra = [k for k in loaded if k not in params]
+        if missing or extra:
+            raise KeyError(
+                f"{filename} does not match this block: parameters "
+                f"{missing[:8]} are missing from it, and it holds "
+                f"{extra[:8]}, which the block does not have")
+        with torch.inference_mode(False), torch.no_grad():
+            for name, t in params.items():
+                value = loaded[name]
+                if value.dtype != t.dtype:
+                    raise TypeError(f"{name}: file has {value.dtype}, the "
+                                    f"parameter is {t.dtype}")
+                if is_deferred(t):
+                    t.materialize(tuple(value.shape))
+                elif tuple(t.shape) != tuple(value.shape):
+                    raise ValueError(
+                        f"{name}: file has shape {tuple(value.shape)}, the "
+                        f"parameter {tuple(t.shape)}")
+                t.copy_(value)
+
+    # --------------------------------------------------------------- serving
     def compile_grid(self, make_example, buckets):
         """Run each bucket's example once in inference mode; returns
         ``{bucket: signature}``.  ``make_example(bucket)`` returns the input

@@ -1,4 +1,6 @@
 """Gluon layers of the port."""
-from .activations import GELU  # noqa: F401
-from .basic_layers import (Dense, Dropout, Embedding,  # noqa: F401
-                           HybridSequential, LayerNorm)
+from .activations import GELU, Activation  # noqa: F401
+from .basic_layers import (BatchNorm, Dense, Dropout, Embedding,  # noqa: F401
+                           Flatten, HybridSequential, LayerNorm)
+from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D,  # noqa: F401
+                          MaxPool2D)

@@ -1,22 +1,39 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``).
 
-Unlike Gluon, shapes are fixed at construction: ``Dense`` takes its
-``in_units`` and ``LayerNorm`` its ``in_channels`` up front, and parameters
-are allocated on ``device`` and filled by ``HybridBlock.initialize``.
+Parameters are allocated on ``device`` at construction and filled by
+``HybridBlock.initialize``.  ``Dense(in_units=0)`` and
+``BatchNorm(in_channels=0)`` defer their shapes to the first forward or to
+``load_parameters``, as Gluon does.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops import nn as ops
-from ..block import HybridBlock
+from ..block import HybridBlock, is_deferred
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
+           "BatchNorm", "Flatten"]
 
 # MXNet's other Activation types come with the layers that use them
 _ACTIVATIONS = {"tanh": torch.tanh}
+
+
+def _param(shape, dtype, device):
+    """A parameter of ``shape``, or a deferred one when a width is 0."""
+    if 0 in shape:
+        return nn.UninitializedParameter(device=device, dtype=dtype)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def _buffer(shape, dtype, device):
+    if 0 in shape:
+        return nn.UninitializedBuffer(device=device, dtype=dtype)
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
 class HybridSequential(HybridBlock):
@@ -43,14 +60,14 @@ class HybridSequential(HybridBlock):
 
 class Dense(HybridBlock):
     """Fully-connected layer, weight ``(units, in_units)`` as MXNet (and
-    ``nn.Linear``) store it."""
+    ``nn.Linear``) store it; ``in_units=0`` defers it."""
 
-    def __init__(self, units, in_units, activation=None, use_bias=True,
+    def __init__(self, units, in_units=0, activation=None, use_bias=True,
                  flatten=True, dtype=torch.float32, device=None):
         super().__init__()
+        self._units = units
         self._flatten = flatten
-        self.weight = nn.Parameter(torch.empty(units, in_units, dtype=dtype,
-                                               device=device))
+        self.weight = _param((units, in_units), dtype, device)
         self.bias = nn.Parameter(torch.empty(units, dtype=dtype,
                                              device=device)) \
             if use_bias else None
@@ -59,6 +76,11 @@ class Dense(HybridBlock):
         self._act = _ACTIVATIONS.get(activation)
 
     def forward(self, x):
+        if is_deferred(self.weight):
+            in_units = math.prod(x.shape[1:]) if self._flatten \
+                else x.shape[-1]
+            self._materialize({"weight": (self._units, in_units)},
+                              x.device)
         y = ops.fully_connected(x, self.weight, self.bias, self._flatten)
         return y if self._act is None else self._act(y)
 
@@ -105,3 +127,50 @@ class LayerNorm(HybridBlock):
     def forward(self, x):
         return ops.layer_norm(x, self.gamma, self.beta, self._axis,
                               self._epsilon)
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalisation over ``axis`` with learnable ``gamma``/``beta``
+    and the buffers ``running_mean``/``running_var``
+    (``mxnet_tpu/gluon/nn/basic_layers.py:180``).  ``scale=False`` fixes
+    gamma at one (the op's ``fix_gamma``); ``center=False`` keeps beta at
+    its initial zero.
+
+    Inference only: in training mode the layer raises unless
+    ``use_global_stats``; batch statistics come with the training slice
+    (ROADMAP.md)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, in_channels=0, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self._axis = axis
+        self._epsilon = epsilon
+        self._fix_gamma = not scale
+        self._use_global_stats = use_global_stats
+        shape = (in_channels,)
+        self.gamma = _param(shape, dtype, device)
+        self.beta = _param(shape, dtype, device)
+        self.register_buffer("running_mean", _buffer(shape, dtype, device))
+        self.register_buffer("running_var", _buffer(shape, dtype, device))
+
+    def forward(self, x):
+        if self.training and not self._use_global_stats:
+            raise NotImplementedError(
+                "BatchNorm in training mode needs batch statistics, which "
+                "come with the training slice (ROADMAP.md); call .eval() "
+                "for inference")
+        if is_deferred(self.gamma):
+            c = (x.shape[self._axis],)
+            self._materialize({"gamma": c, "beta": c, "running_mean": c,
+                               "running_var": c}, x.device)
+        return ops.batch_norm(x, self.gamma, self.beta, self.running_mean,
+                              self.running_var, self._epsilon,
+                              self._fix_gamma, self._axis)
+
+
+class Flatten(HybridBlock):
+    """``(N, ...) -> (N, prod(...))``."""
+
+    def forward(self, x):
+        return ops.flatten(x)

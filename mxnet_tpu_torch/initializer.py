@@ -2,8 +2,9 @@
 
 Only the default that ``Block.initialize`` uses is ported: ``Uniform``,
 dispatched by parameter name as MXNet's ``Initializer.__call__`` does
-(``bias``/``beta`` zero, ``gamma`` one, everything else uniform), drawn from
-an explicit ``torch.Generator``.
+(``bias``/``beta`` and ``running_mean`` zero, ``gamma`` and ``running_var``
+one, everything else uniform), drawn from an explicit ``torch.Generator``
+on the tensor's device.
 """
 from __future__ import annotations
 
@@ -20,9 +21,9 @@ class Uniform:
 
     @torch.no_grad()
     def __call__(self, name, tensor, generator=None):
-        if name.endswith("bias") or name.endswith("beta"):
+        if name.endswith(("bias", "beta", "running_mean")):
             tensor.zero_()
-        elif name.endswith("gamma"):
+        elif name.endswith(("gamma", "running_var")):
             tensor.fill_(1.0)
         else:
             tensor.uniform_(-self.scale, self.scale, generator=generator)

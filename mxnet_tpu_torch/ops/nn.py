@@ -1,17 +1,26 @@
 """Plain PyTorch counterparts of the JAX package's layer ops.
 
-``FullyConnected`` and ``LayerNorm``/``softmax`` come from
-``mxnet_tpu/ops/nn.py`` (:33, :369, :434), ``Embedding`` from
-``mxnet_tpu/ops/matrix.py`` (:288).  XLA computed these outside any Pallas
-kernel, so here they stay torch operators (cuBLAS products, PyTorch's
-normalisation and softmax).
+``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm`` and
+``LayerNorm``/``softmax`` come from ``mxnet_tpu/ops/nn.py`` (:33, :88, :179,
+:267, :369, :434), ``Activation`` from ``mxnet_tpu/ops/elemwise.py`` (:156),
+``Flatten`` and ``Embedding`` from ``mxnet_tpu/ops/matrix.py`` (:80, :288).
+XLA computed these outside any Pallas kernel, so here they stay torch
+operators (cuDNN convolutions and normalisation, cuBLAS products).
+
+Only the channel-first layouts (NCW/NCHW/NCDHW) are ported; a channel-last
+``layout`` raises (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fully_connected", "layer_norm", "softmax", "embedding"]
+__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
+           "activation", "flatten", "layer_norm", "softmax", "embedding"]
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -38,3 +47,123 @@ def embedding(data, weight):
     (its gather clamps), and int32 ids become the ``long`` torch needs."""
     idx = data.long().clamp(0, weight.shape[0] - 1)
     return F.embedding(idx, weight)
+
+
+def _tuple(v, nd, default):
+    if v is None or v == ():
+        return (default,) * nd
+    if isinstance(v, int):
+        return (v,) * nd
+    v = tuple(int(i) for i in v)
+    if len(v) != nd:
+        raise ValueError(f"expected {nd} values, got {v}")
+    return v
+
+
+def _channel_first(layout, nd):
+    if layout not in (None, "", ("NCW", "NCHW", "NCDHW")[nd - 1]):
+        raise NotImplementedError(
+            f"layout {layout!r}: the port takes channel-first data only; "
+            f"channel-last layouts are queued in ROADMAP.md")
+
+
+def convolution(data, weight, bias=None, stride=None, pad=None, dilate=None,
+                num_group=1, layout=None):
+    """N-d convolution, data ``(N, C, *spatial)``, weight
+    ``(num_filter, C/num_group, *kernel)``, symmetric zero padding."""
+    nd = data.dim() - 2
+    _channel_first(layout, nd)
+    return _CONV[nd](data, weight, bias, _tuple(stride, nd, 1),
+                     _tuple(pad, nd, 0), _tuple(dilate, nd, 1),
+                     int(num_group))
+
+
+def _pool_pads(shape, kernel, stride, pad, convention):
+    """(low, high) padding per spatial axis.  ``"full"`` (ceil division)
+    adds the extra padding on the high side, as ``_pads`` in the JAX op;
+    torch's ``ceil_mode`` follows another edge rule and is not used."""
+    if convention not in ("valid", "full"):
+        raise ValueError(f"unknown pooling_convention {convention!r}")
+    pads = []
+    for size, k, s, p in zip(shape, kernel, stride, pad):
+        rem = (size + 2 * p - k) % s
+        extra = (s - rem) % s if convention == "full" and rem else 0
+        pads.append((p, p + extra))
+    return pads
+
+
+def _padded(x, pads, value=0.0):
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+    return F.pad(x, flat, value=value) if any(flat) else x
+
+
+def _window_sum(x, kernel, stride, pads):
+    """Sum over each window of ``x`` zero-padded by ``pads``."""
+    return F.avg_pool2d(_padded(x, pads), kernel, stride,
+                        divisor_override=1)
+
+
+def pooling(data, kernel=None, pool_type="max", global_pool=False,
+            pooling_convention="valid", stride=None, pad=None,
+            count_include_pad=True, layout=None):
+    """Max/avg/sum pooling over H and W of NCHW data.
+
+    Padding is filled with the reduction's identity (-inf for max, 0 for
+    the sums); ``avg`` divides by the window size when
+    ``count_include_pad`` (extra ``"full"`` padding included, as the
+    reference does) and by the count of real elements otherwise."""
+    if data.dim() != 4:
+        raise NotImplementedError("the port pools NCHW data only")
+    _channel_first(layout, 2)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(f"unknown pool_type {pool_type!r}")
+    if global_pool:
+        reduce = {"max": torch.amax, "avg": torch.mean, "sum": torch.sum}
+        return reduce[pool_type](data, dim=(2, 3), keepdim=True)
+    kernel, stride, pad = (_tuple(kernel, 2, 1), _tuple(stride, 2, 1),
+                           _tuple(pad, 2, 0))
+    pads = _pool_pads(data.shape[2:], kernel, stride, pad, pooling_convention)
+    if pool_type == "max":
+        if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
+            # torch pads with -inf itself: no padded copy of the input
+            return F.max_pool2d(data, kernel, stride, pad)
+        return F.max_pool2d(_padded(data, pads, float("-inf")), kernel,
+                            stride)
+    s = _window_sum(data, kernel, stride, pads)
+    if pool_type == "sum":
+        return s
+    if count_include_pad:
+        return s / math.prod(kernel)
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    return s / _window_sum(ones, kernel, stride, pads)
+
+
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               fix_gamma=True, axis=1):
+    """Inference BatchNorm over ``axis`` with the moving statistics:
+    ``(x - mean) / sqrt(var + eps) * gamma + beta``, gamma read as one when
+    ``fix_gamma``.  Returns the output only; training-mode batch statistics
+    come with the training slice (ROADMAP.md)."""
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    ax = axis % data.dim()
+    x = data if ax == 1 else data.movedim(ax, 1)
+    out = F.batch_norm(x, moving_mean, moving_var, g, beta, training=False,
+                       eps=float(eps))
+    return out if ax == 1 else out.movedim(1, ax)
+
+
+_ACT = {"relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+        "softrelu": F.softplus, "softsign": F.softsign}
+
+
+def activation(data, act_type="relu"):
+    """``Activation``: relu, sigmoid, tanh, softrelu (softplus), softsign."""
+    if act_type not in _ACT:
+        raise ValueError(f"unknown act_type {act_type!r}")
+    return _ACT[act_type](data)
+
+
+def flatten(data):
+    """``(N, ...) -> (N, prod(...))``."""
+    return data.reshape(data.shape[0], -1)

@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from mxnet_tpu_torch import context
+from mxnet_tpu_torch import context, rtc
+from mxnet_tpu_torch.gluon.model_zoo import get_model
 from mxnet_tpu_torch.models import get_bert_model
 from mxnet_tpu_torch.serving import ModelRuntime
 
@@ -43,7 +44,8 @@ def test_port_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import mxnet_tpu_torch\n"
             "import mxnet_tpu_torch.ops.flash_attention, "
-            "mxnet_tpu_torch.models.bert, mxnet_tpu_torch.serving\n"
+            "mxnet_tpu_torch.models.bert, mxnet_tpu_torch.serving, "
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.gluon.model_zoo\n"
             "assert not any(k.split('.')[0] in ('jax', 'mxnet_tpu') and "
             "sys.modules[k] is not None for k in sys.modules)\n"
             "print('ok')\n")
@@ -63,6 +65,22 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
                          device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRuntime(net, ((8,), (8,)), dtype="int32", max_batch=1)
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("resnet50_v1")
+    resnet = get_model("resnet50_v1", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRuntime(resnet, (3, 224, 224), max_batch=8, warm=False)
+    ModelRuntime(resnet, (3, 224, 224), max_batch=8, warm=False,
+                 device="cpu")
+
+    # mx.rtc names what it lacks: the toolkit's NVRTC or the driver where
+    # they are absent, else the device
+    missing = r"NVRTC \(libnvrtc.so\)|libcuda.so.1|needs a CUDA device"
+    with pytest.raises(RuntimeError, match=missing):
+        rtc.CudaModule('extern "C" __global__ void k() {}')
+    with pytest.raises(RuntimeError, match=missing):
+        rtc.compile_cuda("", "double_k", ((8, 128), "float32"))
 
 
 def test_contexts_name_torch_devices():
