@@ -38,11 +38,33 @@ Phases, in order; any failure exits non-zero:
    BatchNorm and cuBLAS carry it through torch, as XLA carries it in the JAX
    package.
 
-Phases 4 and 6 print a ``[profile]`` breakdown of one bucket-8 micro-batch.
-The last two lines are the kernels' JSON record and the device line.
+7. bn-stats kernel vs plain: the BatchNorm statistics kernel against its
+   plain version with the training pivot on the nine BatchNorm input
+   geometries of ResNet-50 at 224 and batch 32, fp32 and bf16, plus a
+   ragged (3, 5, 7, 9) and a mean-1000 case (atol 2e-5 on a variance of
+   0.25; 1e-4 at mean 1000, where fp32's own step is 6e-5), and per fp32
+   geometry its time beside the plain version, ``torch.var_mean`` (a
+   yardstick the port never calls) and the card's bound;
+8. training parity: ResNet-50 v1 (phase 6's seeded weights and
+   ``.params`` file) takes 2 SGD steps (lr 0.01, momentum 0.9, wd 1e-4,
+   ``SoftmaxCrossEntropyLoss``) at batch 8 on the card and on the CPU
+   plain path.  The per-step losses, every step-1 gradient and every
+   parameter and running statistic after step 2 must agree within 1e-4 of
+   each tensor's max, or twice the CPU run's own spread when the batch is
+   reordered (the same training in exact arithmetic) if that is larger.
+   Every training forward must launch the kernel exactly 53 times (one
+   per BatchNorm) and the plain statistics must never see a CUDA tensor;
+9. training: the same model at full width, batch 32 of (3, 224, 224): 3
+   warm steps, then 10 timed steps (synchronised): step ms, images/s, peak
+   device memory, finite losses, 53 launches per step.  This is the slice's
+   main path: the kernel's ``launches`` in the JSON line count it.
+
+Phases 4, 6 and 9 print a ``[profile]`` breakdown of one micro-batch or
+step.  The last two lines are the kernels' JSON record and the device line.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -63,6 +85,13 @@ SLICE_QKV = (8, 12, SEQ, 64)           # bucket 8 of bert_base: (B, H, T, D)
 IMAGE = (3, 224, 224)
 AXPY_SHAPE = (8, 64, 112, 112)         # bucket 8 of ResNet-50's stem output
 BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
+RESNET50_BN = [(32, 64, 112, 112), (32, 64, 56, 56), (32, 256, 56, 56),
+               (32, 128, 28, 28), (32, 512, 28, 28), (32, 256, 14, 14),
+               (32, 1024, 14, 14), (32, 512, 7, 7), (32, 2048, 7, 7)]
+TRAIN_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+PARITY_BATCH, PARITY_STEPS = 8, 2
+TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 32, 3, 10
+BN_PER_FORWARD = 53                    # BatchNorm layers of ResNet-50 v1
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12,    # fp32 outside the tensor cores
               torch.bfloat16: 989e12, torch.float16: 989e12}
@@ -104,6 +133,17 @@ def attention_bound_ms(shape, dtype, causal=False):
     ops = 4 * b * h * t * t * d * (0.5 if causal else 1.0)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def bn_stats_bound_ms(shape, dtype):
+    """Least time for the statistics of an NCHW tensor: read it and the
+    pivot once, write mean and var; 3 operations an element."""
+    n = math.prod(shape)
+    elem = torch.empty((), dtype=dtype).element_size()
+    by_bytes = (n * elem + 3 * shape[1] * 4) / HBM_BYTES_PER_S * 1e3
+    by_ops = 3 * n / PEAK_FLOPS[torch.float32] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -545,6 +585,287 @@ def phase_resnet(card):
         f"{N_REQUESTS / wall2:.2f} requests/s, on {card}")
     profile_one_batch(rt, list(images[:8]), top=10)
     telemetry.disable()
+    return path
+
+
+def phase_bn_kernel(bs, card):
+    """The bn-stats kernel against its plain version, and its times per
+    fp32 geometry; returns ({shape: (kernel, plain, var_mean, bound ms,
+    bound_by)}, the largest error at those shapes)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(s, dt, 0.0, 0.5) for s in RESNET50_BN
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [((3, 5, 7, 9), torch.float32, 0.0, 0.5),
+              ((8, 16, 28, 28), torch.float32, 1000.0, 1.0),
+              ((8, 16, 28, 28), torch.bfloat16, 1000.0, 1.0)]
+    times, path_err = {}, 0.0
+    for shape, dtype, mean, std in cases:
+        x = (torch.randn(shape, generator=gen, device=dev) * std + mean) \
+            .to(dtype)
+        pivot = x[0, :, 0, 0].float().contiguous()
+        m, v = bs.bn_stats(x, pivot)
+        torch.cuda.synchronize()
+        rm, rv = bs._reference(x, pivot)
+        err = max((m - rm).abs().max().item(), (v - rv).abs().max().item())
+        tol = 2e-5 if mean == 0.0 else 1e-4
+        check(m.dtype == v.dtype == torch.float32 and
+              m.shape == v.shape == (shape[1],),
+              f"bn_stats output {m.dtype} {tuple(m.shape)}")
+        check(math.isfinite(err) and err <= tol,
+              f"bn_stats disagrees with plain version at {shape} {dtype} "
+              f"mean {mean}: {err}")
+        line = (f"[bn_stats] {shape} {str(dtype)[6:]} mean {mean:g}: "
+                f"max_abs_err {err:.3e} (tol {tol:g})")
+        if shape in RESNET50_BN and dtype == torch.float32:
+            path_err = max(path_err, err)
+            k = device_ms(lambda: bs.bn_stats(x, pivot))
+            pl = device_ms(lambda: bs._reference(x, pivot))
+            lib = device_ms(lambda: torch.var_mean(x, dim=(0, 2, 3),
+                                                   unbiased=False))
+            bound, by = bn_stats_bound_ms(shape, dtype)
+            times[shape] = (k, pl, lib, bound, by)
+            line += (f"; kernel {k:.4f} ms, plain {pl:.4f} ms, var_mean "
+                     f"{lib:.4f} ms, bound {bound:.4f} ms ({by}), "
+                     f"{bound / k:.2f} of the bound")
+        log(line)
+    log(f"[bn_stats] timed on {card}, inputs warm in L2 where they fit "
+        f"(the real caller reads what the convolution just wrote)")
+    return times, path_err
+
+
+@contextlib.contextmanager
+def no_plain_stats_on_cuda(bs):
+    """Fails the run if the plain bn statistics see a CUDA tensor inside
+    the block."""
+    plain_on_cuda = []
+    real_reference = bs._reference
+
+    def guarded_reference(x, pivot=None):
+        if x.is_cuda:
+            plain_on_cuda.append(tuple(x.shape))
+        return real_reference(x, pivot)
+
+    bs._reference = guarded_reference
+    try:
+        yield
+    finally:
+        bs._reference = real_reference
+    check(not plain_on_cuda,
+          f"plain bn statistics ran on CUDA tensors: {plain_on_cuda[:3]}")
+
+
+def _train(net, x, y, steps):
+    """``steps`` SGD steps of the user's loop; returns (per-step losses,
+    the gradients of step 1, final parameters and running statistics),
+    all on the host."""
+    from mxnet_tpu_torch import autograd, gluon
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "sgd", dict(TRAIN_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, grads = [], None
+    for step in range(steps):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss)
+        losses.append(loss.detach().cpu().numpy())
+        if step == 0:
+            grads = {k: p.grad().cpu().numpy().copy()
+                     for k, p in params.items() if p.grad_req != "null"}
+        trainer.step(x.shape[0])
+    return losses, grads, {k: p.data().detach().cpu().numpy()
+                           for k, p in params.items()}
+
+
+def _rel(a, b):
+    """(the largest over tensors of max |a - b| / max |b|, its tensor)."""
+    check(sorted(a) == sorted(b) and a, "compared runs differ in tensors")
+    return max((float(np.abs(a[k] - b[k]).max()) /
+                max(float(np.abs(b[k]).max()), 1e-30), k) for k in b)
+
+
+def phase_train_parity(bs, path):
+    """2 steps at batch 8 on the card against the CPU plain path, with 53
+    kernel launches per forward and no plain statistics on the card."""
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    rng = np.random.RandomState(2)
+    x = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
+    y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
+    perm = np.roll(np.arange(PARITY_BATCH), 3)
+
+    def cpu_run(order):
+        net = get_model("resnet50_v1", classes=1000, device="cpu")
+        net.load_parameters(str(path))
+        run = _train(net, torch.from_numpy(x[order]),
+                     torch.from_numpy(y[order]), PARITY_STEPS)
+        return [l[np.argsort(order)] for l in run[0]], run[1], run[2]
+
+    t0 = time.perf_counter()
+    ref = cpu_run(np.arange(PARITY_BATCH))
+    again = cpu_run(perm)
+    cpu_s = time.perf_counter() - t0
+
+    net = get_model("resnet50_v1", classes=1000)       # the GPU
+    net.load_parameters(str(path))
+    with no_plain_stats_on_cuda(bs):
+        bs.bn_stats.launches = 0                 # the parity path starts
+        card = _train(net, torch.from_numpy(x).cuda(),
+                      torch.from_numpy(y).cuda(), PARITY_STEPS)
+        torch.cuda.synchronize()
+        launches = bs.bn_stats.launches          # the parity path ends
+    check(launches == BN_PER_FORWARD * PARITY_STEPS,
+          f"{launches} bn-stats launches for {PARITY_STEPS} training "
+          f"forwards (want {BN_PER_FORWARD} each)")
+    log(f"[train] parity: 2 CPU plain runs of {PARITY_STEPS} steps at batch "
+        f"{PARITY_BATCH} in {cpu_s:.1f} s; card: {launches} bn-stats "
+        f"launches ({BN_PER_FORWARD} per forward), none of the plain "
+        f"version")
+    quantities = [(f"loss of step {i + 1}", lambda r, i=i: {"l": r[0][i]})
+                  for i in range(PARITY_STEPS)]
+    quantities += [("step-1 gradients", lambda r: r[1]),
+                   (f"parameters and running statistics after step "
+                    f"{PARITY_STEPS}", lambda r: r[2])]
+    for what, pick in quantities:
+        spread, spread_at = _rel(pick(again), pick(ref))
+        tol = max(1e-4, 2 * spread)
+        err, err_at = _rel(pick(card), pick(ref))
+        log(f"[train] {what}: card vs CPU {err:.3e} of the tensor's max "
+            f"(worst {err_at}), CPU vs CPU reordered {spread:.3e} (worst "
+            f"{spread_at}), tol {tol:.3e}")
+        check(all(np.isfinite(v).all() for v in pick(card).values()),
+              f"non-finite {what}")
+        check(err <= tol, f"card training disagrees with the CPU plain run: "
+                          f"{what}")
+    log(f"[train] losses, card: {[float(l.mean()) for l in card[0]]}, "
+        f"CPU: {[float(l.mean()) for l in ref[0]]}")
+
+
+def phase_train(bs, path, card):
+    """The main path at full width: batch 32, 3 warm and 10 timed steps;
+    returns (launches, {BatchNorm input shape: count per forward})."""
+    from mxnet_tpu_torch import autograd, gluon, telemetry
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+
+    net = get_model("resnet50_v1", classes=1000)
+    net.load_parameters(str(path))
+    bn_shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, i: bn_shapes.append(tuple(i[0].shape)))
+        for m in net.modules() if isinstance(m, BatchNorm)]
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(TRAIN_BATCH, *IMAGE).astype("float32")) \
+        .cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH)
+                         .astype("float32")).cuda()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss)
+        trainer.step(TRAIN_BATCH)
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.enable()
+    telemetry.reset()
+    with no_plain_stats_on_cuda(bs):
+        bs.bn_stats.launches = 0                 # the main path starts
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(WARM_STEPS)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for h in hooks:
+            h.remove()
+        for _ in range(TIMED_STEPS):
+            losses.append(step())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = bs.bn_stats.launches          # the main path ends
+    snap = telemetry.snapshot()
+    telemetry.disable()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(l.mean()) for l in losses]
+    steps = WARM_STEPS + TIMED_STEPS
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    # the same batch every step: training must bring its loss down
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == BN_PER_FORWARD * steps,
+          f"{launches} bn-stats launches in {steps} steps")
+    check(len(bn_shapes) == BN_PER_FORWARD * WARM_STEPS,
+          f"{len(bn_shapes)} BatchNorm calls in {WARM_STEPS} forwards")
+    step_ms = (t2 - t1) * 1e3 / TIMED_STEPS
+    upd = snap["spans"].get("trainer.update", {"calls": 1, "total_ms": 0.0})
+    log(f"[train] resnet50_v1 batch {TRAIN_BATCH} fp32 (TF32 off): "
+        f"{WARM_STEPS} warm steps {(t1 - t0) * 1e3:.1f} ms, {TIMED_STEPS} "
+        f"timed steps {step_ms:.3f} ms each, "
+        f"{TRAIN_BATCH * 1e3 / step_ms:.2f} images/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB; {launches} bn-stats launches "
+        f"({BN_PER_FORWARD} per step); trainer.update "
+        f"{upd['total_ms'] / max(upd['calls'], 1):.3f} ms host per step; "
+        f"on {card}")
+    log(f"[train] mean loss per step: {[round(l, 4) for l in losses]}")
+    profile_train_step(step, step_ms)
+    counts = {}
+    for shape in bn_shapes[:BN_PER_FORWARD]:
+        counts[shape] = counts.get(shape, 0) + 1
+    return launches, counts
+
+
+def profile_train_step(step, step_ms, top=12):
+    """Device time by kernel over one training step (CUPTI through
+    torch.profiler) beside the timed steps' mean wall time."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        log(f"[profile] train step: {step_ms:.3f} ms wall; device time not "
+            f"measured (no CUDA events in the trace)")
+        return
+    bn_ms = sum(e.self_device_time_total for e in kernels
+                if "bn_stats" in e.key) / 1e3
+    log(f"[profile] train step batch {TRAIN_BATCH}: {step_ms:.3f} ms wall "
+        f"(mean of {TIMED_STEPS}), device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / step_ms:.3f}, {len(kernels)} kernels, "
+        f"{sum(e.count for e in kernels)} launches; bn-stats kernels "
+        f"{bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
+
+
+def bn_record(times, counts, err, launches):
+    """The bn-stats kernel's JSON record: times summed over the BatchNorm
+    inputs of one batch-32 forward."""
+    check(set(counts) == set(times),
+          f"BatchNorm geometries {sorted(counts)} differ from the timed "
+          f"ones {sorted(times)}")
+    total = [sum(times[s][i] * n for s, n in counts.items())
+             for i in range(4)]
+    by = {times[s][4] for s in counts}
+    check(len(by) == 1, f"bounds of mixed kinds {by}")
+    log(f"[bn_stats] one batch-{TRAIN_BATCH} forward ({sum(counts.values())}"
+        f" launches): kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, "
+        f"var_mean {total[2]:.4f} ms, bound {total[3]:.4f} ms")
+    return {"name": "bn_stats", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/bn_stats.cu",
+            "replaces": "benchmark/pallas_bn_stats.py:91",
+            "shape": f"the {sum(counts.values())} BatchNorm inputs of one "
+                     f"batch-{TRAIN_BATCH} ResNet-50 v1 forward; ms summed",
+            "dtype": "float32", "launches": launches, "max_abs_err": err,
+            "ms": total[0], "kernel_ms": total[0], "plain_ms": total[1],
+            "bound_ms": total[3],
+            "bound_by": by.pop(),
+            "library_ms": total[2]}
 
 
 def main():
@@ -560,8 +881,13 @@ def main():
     record = phase_kernel(fa)
     record["launches"] = phase_slice(fa, card)
     rtc_record = phase_rtc(card)
-    phase_resnet(card)
-    print(json.dumps({"kernels": [record, rtc_record]}), flush=True)
+    path = phase_resnet(card)
+    bs = importlib.import_module("mxnet_tpu_torch.ops.bn_stats")
+    times, bn_err = phase_bn_kernel(bs, card)
+    phase_train_parity(bs, path)
+    launches, counts = phase_train(bs, path, card)
+    bn = bn_record(times, counts, bn_err, launches)
+    print(json.dumps({"kernels": [record, rtc_record, bn]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

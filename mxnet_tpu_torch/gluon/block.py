@@ -1,5 +1,6 @@
 """``HybridBlock`` on ``torch.nn.Module`` (counterpart of
-``mxnet_tpu/gluon/block.py``, the part the serving slices need).
+``mxnet_tpu/gluon/block.py``, the part the serving and training slices
+need).
 
 PyTorch runs eagerly, so ``hybridize()`` is accepted and changes nothing,
 and "compiling" a bucket ladder (``compile_grid``) means running each bucket
@@ -15,16 +16,21 @@ naming gives.  A layer built with an unknown input width (``in_channels=0``,
 ``allow_deferred_init`` (``mxnet_tpu/gluon/parameter.py:28-37``): its shape
 is fixed by the first forward, on the input's device, or by
 ``load_parameters``, from the file.  ``initialize()`` fills such a
-parameter when it is materialised.
+parameter when it is materialised.  ``collect_params()`` gives each of them
+a Gluon ``Parameter`` (``parameter.py``) under the same names, for
+``Trainer``.
 """
 from __future__ import annotations
+
+import re
 
 import torch
 from torch import nn
 from torch.nn.parameter import UninitializedTensorMixin
 
-from .. import ndarray
+from .. import autograd, ndarray
 from ..initializer import Uniform
+from .parameter import Parameter
 
 __all__ = ["HybridBlock", "io_signature", "is_deferred"]
 
@@ -57,6 +63,14 @@ class HybridBlock(nn.Module):
         self._warmed = set()
         # (init, generator) for parameters that materialise later
         self._deferred_init = None
+
+    def __call__(self, *args, **kwargs):
+        # as in MXNet, only a forward inside autograd.record() builds a
+        # graph; the check costs nothing below the outermost block
+        if torch.is_grad_enabled() and not autograd.is_recording():
+            with torch.no_grad():
+                return super().__call__(*args, **kwargs)
+        return super().__call__(*args, **kwargs)
 
     def hybridize(self, active=True, **kwargs):
         """Accepted for API parity; eager mode is the only mode."""
@@ -95,6 +109,16 @@ class HybridBlock(nn.Module):
         out = dict(self.named_parameters())
         out.update(self.named_buffers())
         return out
+
+    def collect_params(self, select=None):
+        """``{structural name: Parameter}`` for every parameter and buffer
+        of this block and its children (``mxnet_tpu/gluon/block.py:229``);
+        ``select`` is a regular expression the names must match.  Running
+        statistics have ``grad_req='null'``."""
+        pattern = re.compile(select) if select else None
+        return {name: Parameter.of(name, t)
+                for name, t in self._collect_params_with_prefix().items()
+                if pattern is None or pattern.match(name)}
 
     def save_parameters(self, filename):
         """Write every parameter and buffer to an MXNet ``.params`` file

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import autograd
 from ...ops import nn as ops
 from ..block import HybridBlock, is_deferred
 
@@ -23,11 +24,13 @@ __all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
 _ACTIVATIONS = {"tanh": torch.tanh}
 
 
-def _param(shape, dtype, device):
+def _param(shape, dtype, device, requires_grad=True):
     """A parameter of ``shape``, or a deferred one when a width is 0."""
     if 0 in shape:
-        return nn.UninitializedParameter(device=device, dtype=dtype)
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+        return nn.UninitializedParameter(requires_grad, device=device,
+                                         dtype=dtype)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad)
 
 
 def _buffer(shape, dtype, device):
@@ -86,14 +89,14 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Dropout; the identity outside training mode (``Module.eval()``)."""
+    """Dropout; the identity unless ``autograd.is_training()``."""
 
     def __init__(self, rate):
         super().__init__()
         self._rate = rate
 
     def forward(self, x):
-        if self.training and self._rate > 0:
+        if autograd.is_training() and self._rate > 0:
             return F.dropout(x, self._rate, training=True)
         return x
 
@@ -133,40 +136,44 @@ class BatchNorm(HybridBlock):
     """Batch normalisation over ``axis`` with learnable ``gamma``/``beta``
     and the buffers ``running_mean``/``running_var``
     (``mxnet_tpu/gluon/nn/basic_layers.py:180``).  ``scale=False`` fixes
-    gamma at one (the op's ``fix_gamma``); ``center=False`` keeps beta at
-    its initial zero.
+    gamma at one (the op's ``fix_gamma``) and ``center=False`` keeps beta at
+    its initial zero; neither then takes a gradient.
 
-    Inference only: in training mode the layer raises unless
-    ``use_global_stats``; batch statistics come with the training slice
-    (ROADMAP.md)."""
+    Under ``autograd.is_training()`` (``record()``, ``train_mode()``) and
+    without ``use_global_stats`` it normalises with the batch statistics and
+    moves the running ones towards them by ``momentum``; otherwise it uses
+    the running statistics.  ``nn.Module.train()``/``eval()`` do not enter
+    into it, as MXNet's op reads only the autograd flag."""
 
-    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
-                 use_global_stats=False, in_channels=0, dtype=torch.float32,
-                 device=None):
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self._axis = axis
+        self._momentum = momentum
         self._epsilon = epsilon
         self._fix_gamma = not scale
         self._use_global_stats = use_global_stats
         shape = (in_channels,)
-        self.gamma = _param(shape, dtype, device)
-        self.beta = _param(shape, dtype, device)
+        self.gamma = _param(shape, dtype, device, requires_grad=scale)
+        self.beta = _param(shape, dtype, device, requires_grad=center)
         self.register_buffer("running_mean", _buffer(shape, dtype, device))
         self.register_buffer("running_var", _buffer(shape, dtype, device))
 
     def forward(self, x):
-        if self.training and not self._use_global_stats:
-            raise NotImplementedError(
-                "BatchNorm in training mode needs batch statistics, which "
-                "come with the training slice (ROADMAP.md); call .eval() "
-                "for inference")
         if is_deferred(self.gamma):
             c = (x.shape[self._axis],)
             self._materialize({"gamma": c, "beta": c, "running_mean": c,
                                "running_var": c}, x.device)
-        return ops.batch_norm(x, self.gamma, self.beta, self.running_mean,
-                              self.running_var, self._epsilon,
-                              self._fix_gamma, self._axis)
+        args = (x, self.gamma, self.beta, self.running_mean,
+                self.running_var, self._epsilon, self._fix_gamma,
+                self._axis)
+        if self._use_global_stats or not autograd.is_training():
+            return ops.batch_norm(*args)
+        out, mean, var = ops.batch_norm(*args, training=True)
+        ops.update_moving_stats(self.running_mean, self.running_var, mean,
+                                var, self._momentum)
+        return out
 
 
 class Flatten(HybridBlock):

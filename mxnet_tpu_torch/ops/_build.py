@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``mxnet_tpu_torch/csrc/`` have a plain C interface, so they
-are compiled with ``nvcc`` alone (no PyTorch headers: seconds, not minutes)
-into one shared library under ``build/mxnet_tpu_torch/`` at the repository
-root, and loaded with :mod:`ctypes`.  The library's file name carries a hash
+are compiled with ``nvcc`` alone (no PyTorch headers: seconds, not minutes),
+one ``nvcc -c`` per source, all started together, then linked into one
+shared library under ``build/mxnet_tpu_torch/`` at the repository root and
+loaded with :mod:`ctypes`.  The library's file name carries a hash
 of the sources and flags, so an edited source is never served by a stale
 build.  Nothing is built when this module is imported; the first kernel
 launch builds.  There is no fallback: a failed build raises.
@@ -22,10 +23,11 @@ from pathlib import Path
 __all__ = ["load", "nvcc_path", "BUILD_DIR", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "flash_attention.cu",)
+SOURCES = (_PKG / "csrc" / "flash_attention.cu",
+           _PKG / "csrc" / "bn_stats.cu")
 BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # where the CUDA toolkit installs itself when neither CUDA_HOME nor PATH
 # names it
@@ -67,9 +69,19 @@ def _bind(lib):
     f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
         [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
+    f = lib.mxt_bn_stats
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
+        [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
     lib.mxt_error_string.argtypes = [ctypes.c_int]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check(returncode, cmd, out):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{out}")
 
 
 def load():
@@ -81,18 +93,31 @@ def load():
         so = BUILD_DIR / f"libmxnet_tpu_torch_{_digest()}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # a private name, then an atomic rename: a concurrent build in
+            # private names, then an atomic rename: a concurrent build in
             # another process never loads a half-written library
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *_FLAGS, "-o", str(tmp),
-                   *(str(s) for s in SOURCES)]
+            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o")
+                    for src in SOURCES]
+            nvcc = nvcc_path()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{build_log}")
+            compiles = [[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(SOURCES, objs)]
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            try:
+                procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+                         for cmd in compiles]
+                logs = [proc.communicate()[0] for proc in procs]
+                build_log = "".join(logs)
+                for cmd, proc, out in zip(compiles, procs, logs):
+                    _check(proc.returncode, cmd, out)
+                proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                build_log += proc.stdout
+                _check(proc.returncode, link, proc.stdout)
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
             os.replace(tmp, so)
             build_seconds = time.perf_counter() - t0
         _lib = _bind(ctypes.CDLL(str(so)))

@@ -5,7 +5,9 @@
 :267, :369, :434), ``Activation`` from ``mxnet_tpu/ops/elemwise.py`` (:156),
 ``Flatten`` and ``Embedding`` from ``mxnet_tpu/ops/matrix.py`` (:80, :288).
 XLA computed these outside any Pallas kernel, so here they stay torch
-operators (cuDNN convolutions and normalisation, cuBLAS products).
+operators (cuDNN convolutions, inference normalisation and cuBLAS
+products), except BatchNorm's training-mode batch statistics, which run on
+the port's counterpart of ``bn_stats_kernel`` (``ops/bn_stats.py``).
 
 Only the channel-first layouts (NCW/NCHW/NCDHW) are ported; a channel-last
 ``layout`` raises (ROADMAP.md, queue 1).
@@ -17,8 +19,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .bn_stats import batch_stats
+
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "activation", "flatten", "layer_norm", "softmax", "embedding"]
+           "update_moving_stats", "activation", "flatten", "layer_norm",
+           "softmax", "embedding"]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
@@ -140,17 +145,48 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
 
 
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
-               fix_gamma=True, axis=1):
-    """Inference BatchNorm over ``axis`` with the moving statistics:
-    ``(x - mean) / sqrt(var + eps) * gamma + beta``, gamma read as one when
-    ``fix_gamma``.  Returns the output only; training-mode batch statistics
-    come with the training slice (ROADMAP.md)."""
+               fix_gamma=True, axis=1, training=False):
+    """BatchNorm over ``axis``: ``(x - mean) / sqrt(var + eps) * gamma +
+    beta``, gamma read as one when ``fix_gamma``.
+
+    Inference (``training=False``) normalises with the moving statistics
+    and returns the output only.  Training normalises with the batch
+    statistics, as ``mxnet_tpu/ops/nn.py:284-305`` does, and returns
+    ``(out, mean, var)`` (``var`` biased).  The statistics come from the
+    bn-stats kernel (``ops/bn_stats.py``) with the pivot ``x[0, c, 0, ...]``
+    as its shift; ``out``'s gradient flows through them (the pivot is a
+    constant).  A channel axis other than 1 is moved to 1 first, a copy.
+    The moving statistics are not touched: see
+    :func:`update_moving_stats`."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
     ax = axis % data.dim()
-    x = data if ax == 1 else data.movedim(ax, 1)
-    out = F.batch_norm(x, moving_mean, moving_var, g, beta, training=False,
-                       eps=float(eps))
-    return out if ax == 1 else out.movedim(1, ax)
+    if not training:
+        x = data if ax == 1 else data.movedim(ax, 1)
+        out = F.batch_norm(x, moving_mean, moving_var, g, beta,
+                           training=False, eps=float(eps))
+        return out if ax == 1 else out.movedim(1, ax)
+    x = data if ax == 1 else data.movedim(ax, 1).contiguous()
+    pivot = x[(0, slice(None)) + (0,) * (x.dim() - 2)].detach().float() \
+        .contiguous()
+    mean32, var32 = batch_stats(x, pivot)
+    mean, var = mean32.to(data.dtype), var32.to(data.dtype)
+    shape = [1] * data.dim()
+    shape[ax] = data.shape[ax]
+    inv = torch.rsqrt(var.float() + eps).to(data.dtype)
+    out = (data - mean.reshape(shape)) * (inv * g.to(data.dtype)).reshape(
+        shape) + beta.to(data.dtype).reshape(shape)
+    # the statistics flow into ``out``'s gradient; as returned they carry
+    # none, as in JAX (``stop_gradient`` at mxnet_tpu/ops/nn.py:311)
+    return out, mean.detach(), var.detach()
+
+
+@torch.no_grad()
+def update_moving_stats(moving_mean, moving_var, mean, var, momentum=0.9):
+    """``moving = momentum * moving + (1 - momentum) * batch`` in place, for
+    the mean and the biased variance (the write-back of
+    ``mxnet_tpu/ndarray/register.py:33-42``)."""
+    for moving, batch in ((moving_mean, mean), (moving_var, var)):
+        moving.mul_(momentum).add_(batch.to(moving.dtype) * (1 - momentum))
 
 
 _ACT = {"relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,

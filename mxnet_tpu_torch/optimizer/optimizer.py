@@ -1,0 +1,189 @@
+"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``, the part
+the training slice needs): the ``Optimizer`` base with its registry and
+per-parameter multipliers, ``SGD``, ``create``, ``Updater`` and
+``get_updater``.
+
+Updates are in place on the weight and state tensors
+(``ops/optimizer_ops.py``); ``Updater`` hands a batch of parameters to the
+grouped ``torch._foreach_*`` path (``aggregate.py``) when the optimizer has
+a rule there.
+"""
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from ..ops import optimizer_ops
+
+__all__ = ["Optimizer", "SGD", "Updater", "create", "get_updater",
+           "register"]
+
+
+class Optimizer:
+    """Base optimizer (``mxnet_tpu/optimizer/optimizer.py:63``): learning
+    rate and weight decay with per-parameter multipliers, per-index update
+    counts, ``rescale_grad`` and ``clip_gradient``.
+
+    ``aggregate_num`` caps the parameters of one grouped update; 1 or less
+    keeps the per-parameter path."""
+
+    opt_registry = {}
+
+    @staticmethod
+    def register(klass):
+        name = klass.__name__.lower()
+        if name in Optimizer.opt_registry:
+            warnings.warn(f"New optimizer {klass.__name__} is overriding "
+                          f"existing optimizer {name}")
+        Optimizer.opt_registry[name] = klass
+        return klass
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        if name.lower() in Optimizer.opt_registry:
+            return Optimizer.opt_registry[name.lower()](**kwargs)
+        raise ValueError(f"Cannot find optimizer {name}")
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, begin_num_update=0,
+                 param_dict=None):
+        self.rescale_grad = rescale_grad
+        self.clip_gradient = clip_gradient
+        self.aggregate_num = 256
+        self.lr, self.wd = learning_rate, wd
+        self.begin_num_update = self.num_update = begin_num_update
+        self._index_update_count = {}
+        if param_idx2name is not None and not isinstance(param_idx2name,
+                                                         dict):
+            raise TypeError("param_idx2name should be a dict of param "
+                            "indexes to names")
+        self.idx2name = dict(param_idx2name or {})
+        self.param_dict = param_dict if param_dict else {}
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    def create_state(self, index, weight):
+        """Auxiliary state for ``weight`` (None when there is none)."""
+
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError
+
+    def update_multi(self, indices, weights, grads, states):
+        """The grouped update over parallel lists (``aggregate.py``)."""
+        from . import aggregate
+        aggregate.update_multi(self, indices, weights, grads, states)
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
+    @property
+    def learning_rate(self):
+        return self.lr
+
+    def set_lr_mult(self, args_lr_mult):
+        """Learning-rate multipliers by index or name."""
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Weight-decay multipliers by index or name.  Named parameters
+        (``param_idx2name``, the Module path) that end neither in
+        ``_weight`` nor ``_gamma`` default to 0."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith(("_weight", "_gamma"))}
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, index):
+        indices = index if isinstance(index, (list, tuple)) else (index,)
+        counts = self._index_update_count
+        for idx in indices:
+            counts[idx] = counts.get(idx, self.begin_num_update) + 1
+            self.num_update = max(counts[idx], self.num_update)
+
+    def _param_mult(self, index, table, attr):
+        """The multiplier's precedence (``optimizer.py:189-225``): an
+        attached Gluon ``Parameter`` wins, then an index-keyed entry, then a
+        name-keyed one; default 1."""
+        param = self.param_dict.get(index)
+        if param is not None:
+            return getattr(param, attr)
+        if index in table:
+            return table[index]
+        name = self.idx2name.get(index)
+        return table.get(name, 1.0) if name is not None else 1.0
+
+    def _get_lrs(self, indices):
+        return [self.lr * self._param_mult(i, self.lr_mult, "lr_mult")
+                for i in indices]
+
+    def _get_lr(self, index):
+        return self._get_lrs([index])[0]
+
+    def _get_wds(self, indices):
+        return [self.wd * self._param_mult(i, self.wd_mult, "wd_mult")
+                for i in indices]
+
+    def _get_wd(self, index):
+        return self._get_wds([index])[0]
+
+
+register = Optimizer.register
+
+
+@register
+class SGD(Optimizer):
+    """SGD, with momentum when ``momentum > 0``
+    (``mxnet_tpu/optimizer/optimizer.py:238``): the state is the momentum
+    buffer, and ``lr`` is folded into it as MXNet's kernel does."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight)
+        return None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kwargs = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                      rescale_grad=self.rescale_grad,
+                      clip_gradient=self.clip_gradient)
+        if state is not None:
+            optimizer_ops.sgd_mom_update(weight, grad, state,
+                                         momentum=self.momentum, **kwargs)
+        else:
+            optimizer_ops.sgd_update(weight, grad, **kwargs)
+
+
+create = Optimizer.create_optimizer
+
+
+class Updater:
+    """Per-index optimizer state, made on first update
+    (``mxnet_tpu/optimizer/optimizer.py:799``).  A call with several
+    indices takes the grouped path when the optimizer aggregates."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        batched = isinstance(index, (list, tuple))
+        indices = list(index) if batched else [index]
+        weights = list(weight) if batched else [weight]
+        grads = list(grad) if batched else [grad]
+        for idx, w in zip(indices, weights):
+            if idx not in self.states:
+                self.states[idx] = self.optimizer.create_state(idx, w)
+        states = [self.states[idx] for idx in indices]
+        if len(indices) > 1 and self.optimizer.aggregate_num > 1:
+            self.optimizer.update_multi(indices, weights, grads, states)
+        else:
+            for idx, w, g, s in zip(indices, weights, grads, states):
+                self.optimizer.update(idx, w, g, s)
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -1,0 +1,176 @@
+"""BatchNorm batch statistics and training-mode ``batch_norm`` of the port
+against the JAX package, on the CPU.
+
+The TPU kernel (``benchmark/pallas_bn_stats.py``) is a closure inside that
+script's ``main()``; what it is measured against there is ``xla_stats``,
+the formulation of ``mxnet_tpu.ops.nn.batch_norm``'s training branch.  So
+the port's plain statistics (what ``bn_stats`` runs on a CPU tensor) and
+its training-mode ``batch_norm`` are held against
+``mxnet_tpu.ops.nn.batch_norm(..., __training__=True)`` and its
+``jax.vjp``, on the same numpy inputs.  fp32 throughout; tolerances are
+stated per test.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops import nn as jops
+
+from mxnet_tpu_torch.ops import bn_stats as bs
+from mxnet_tpu_torch.ops import nn as ops
+
+
+def _data(shape, seed=0, mean=0.5, std=2.0, axis=1):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * std + mean).astype("float32")
+    c = shape[axis]
+    gamma = rng.uniform(0.5, 1.5, c).astype("float32")
+    beta = rng.randn(c).astype("float32")
+    return x, gamma, beta
+
+
+def _jax_train(x, gamma, beta, axis, fix_gamma, eps=1e-5):
+    c = x.shape[axis]
+
+    def f(xx, gg, bb):
+        return jops.batch_norm(xx, gg, bb, jnp.zeros(c), jnp.ones(c),
+                               eps=eps, fix_gamma=fix_gamma, axis=axis,
+                               __training__=True)
+    return jax.vjp(f, jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 5, 6), (2, 5, 7, 7), (3, 4)])
+def test_plain_stats_match_jax(shape):
+    """Shifted by the training pivot, the plain statistics are JAX's batch
+    mean and biased variance (atol 1e-5 on O(1) values)."""
+    x, gamma, beta = _data(shape)
+    (_, mean, var), _ = _jax_train(x, gamma, beta, 1, False)
+    xt = torch.from_numpy(x)
+    pivot = xt[(0, slice(None)) + (0,) * (x.ndim - 2)].contiguous()
+    m, v = bs.bn_stats(xt, pivot)
+    assert m.dtype == v.dtype == torch.float32 and m.shape == (shape[1],)
+    np.testing.assert_allclose(m.numpy(), np.asarray(mean), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(v.numpy(), np.asarray(var), rtol=0, atol=1e-5)
+    # unshifted: the TPU kernel's own function, E[x^2] - E[x]^2
+    m0, v0 = bs.bn_stats(xt)
+    x64 = x.astype("float64").reshape(shape[0], shape[1], -1)
+    np.testing.assert_allclose(m0.numpy(), x64.mean((0, 2)), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(v0.numpy(), x64.var((0, 2)), rtol=0,
+                               atol=1e-4)
+
+
+def test_pivot_keeps_large_mean_exact():
+    """Mean 1000, std 1: the unshifted fp32 E[x^2] - E[x]^2 loses the
+    variance (1e6 squared to 1e6 with a 0.06 ulp), the pivot keeps it
+    within 1e-4 of the float64 value."""
+    x, _, _ = _data((8, 4, 6, 6), seed=3, mean=1000.0, std=1.0)
+    x64 = x.astype("float64").reshape(8, 4, -1)
+    xt = torch.from_numpy(x)
+    m, v = bs.bn_stats(xt, xt[0, :, 0, 0].contiguous())
+    np.testing.assert_allclose(v.numpy(), x64.var((0, 2)), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(m.numpy(), x64.mean((0, 2)), rtol=1e-7,
+                               atol=0)
+    _, v_unshifted = bs.bn_stats(xt)
+    assert np.abs(v_unshifted.numpy() - x64.var((0, 2))).max() > 1e-2
+
+
+@pytest.mark.parametrize("axis,shape", [(1, (4, 3, 5, 6)), (3, (2, 5, 6, 4)),
+                                        (1, (2, 6, 7, 7)), (1, (6, 5))])
+@pytest.mark.parametrize("fix_gamma", [False, True])
+@pytest.mark.parametrize("mean", [0.5, 1000.0])
+def test_training_batch_norm_and_grads_match_jax(axis, shape, fix_gamma,
+                                                 mean):
+    """Output, batch mean and variance, and the input/gamma/beta gradients
+    of the training branch against JAX's op and ``jax.vjp``.  The output is
+    O(1): atol 1e-4 (2e-3 with mean 1000, where x - mean itself carries
+    fp32's 6e-5 ulp at 1000); mean and var rtol 1e-5 and atol 1e-4;
+    gradients atol 1e-4 of their largest magnitude (same: 2e-3 at mean
+    1000)."""
+    x, gamma, beta = _data(shape, seed=1, mean=mean,
+                           std=2.0 if mean < 100 else 1.0, axis=axis)
+    (out, bmean, bvar), vjp = _jax_train(x, gamma, beta, axis, fix_gamma)
+    dy = np.random.RandomState(2).randn(*shape).astype("float32")
+    jdx, jdg, jdb = vjp((jnp.asarray(dy), jnp.zeros(x.shape[axis]),
+                         jnp.zeros(x.shape[axis])))
+
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in
+                  (x, gamma, beta))
+    c = x.shape[axis]
+    o, m, v = ops.batch_norm(xt, gt, bt, torch.zeros(c), torch.ones(c),
+                             1e-5, fix_gamma, axis, training=True)
+    o.backward(torch.from_numpy(dy))
+    tol = 1e-4 if mean < 100 else 2e-3
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=0,
+                               atol=tol)
+    np.testing.assert_allclose(m.detach().numpy(), np.asarray(bmean),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(v.detach().numpy(), np.asarray(bvar),
+                               rtol=1e-5, atol=1e-4)
+    for port, ref in ((xt.grad, jdx), (bt.grad, jdb)) + \
+            (() if fix_gamma else ((gt.grad, jdg),)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(port.numpy(), ref, rtol=0,
+                                   atol=tol * np.abs(ref).max())
+    if fix_gamma:
+        assert gt.grad is None or not gt.grad.any()
+
+
+def test_returned_stats_carry_no_gradient_like_jax():
+    """The batch mean and variance feed ``out``'s gradient (the test above)
+    but, as returned, take none: JAX stops their gradient, and so does the
+    port."""
+    x, gamma, beta = _data((3, 4, 5, 5), seed=4)
+    _, vjp = _jax_train(x, gamma, beta, 1, False)
+    jdx = vjp((jnp.zeros(x.shape), jnp.ones(4), jnp.ones(4)))[0]
+    assert not np.asarray(jdx).any()
+    xt = torch.from_numpy(x).requires_grad_()
+    out, m, v = ops.batch_norm(xt, torch.from_numpy(gamma),
+                               torch.from_numpy(beta), None, None, 1e-5,
+                               False, 1, training=True)
+    assert out.requires_grad and not m.requires_grad and not v.requires_grad
+
+
+def test_moving_stats_update_matches_register_writeback():
+    """``update_moving_stats`` is ``register.py``'s write-back:
+    ``m * moving + (1 - m) * batch`` with the biased variance (atol 1e-6)."""
+    from mxnet_tpu.ndarray.register import _batchnorm_writeback
+    import mxnet_tpu as jmx
+    from mxnet_tpu import autograd as jag
+
+    rng = np.random.RandomState(7)
+    mm, mv, bm, bv = (rng.rand(5).astype("float32") for _ in range(4))
+    jm, jv = jmx.nd.array(mm), jmx.nd.array(mv)
+    with jag.train_mode():
+        _batchnorm_writeback([None, None, None, jm, jv],
+                             [None, jmx.nd.array(bm), jmx.nd.array(bv)],
+                             {"momentum": 0.7})
+    tm, tv = torch.from_numpy(mm.copy()), torch.from_numpy(mv.copy())
+    ops.update_moving_stats(tm, tv, torch.from_numpy(bm),
+                            torch.from_numpy(bv), 0.7)
+    np.testing.assert_allclose(tm.numpy(), jm.asnumpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), jv.asnumpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,hw,offset,vec", [
+    (torch.float32, 12544, 0, 4), (torch.float32, 49, 0, 1),
+    (torch.float32, 196, 0, 4), (torch.float32, 98, 0, 2),
+    (torch.float32, 196, 1, 1), (torch.float32, 196, 2, 2),
+    (torch.bfloat16, 784, 0, 8), (torch.bfloat16, 196, 0, 4),
+    (torch.bfloat16, 49, 0, 1), (torch.bfloat16, 784, 4, 4)])
+def test_vector_width_follows_hw_and_alignment(dtype, hw, offset, vec):
+    """The kernel loads 16 bytes a thread where H*W and the base address
+    allow, else the widest smaller width: 7x7 loads one element."""
+    base = torch.empty(2 * hw + 16, dtype=dtype)
+    x = base[offset:offset + 2 * hw].view(1, 2, hw)
+    assert bs._vector_width(x, hw) == vec
+
+
+def test_bn_stats_takes_only_cpu_or_cuda():
+    x = torch.ones(2, 3, 4, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bs.bn_stats(x)

@@ -1,0 +1,125 @@
+"""The port's CUDA bn-stats kernel against its plain version, on the card.
+
+Marked ``gpu``: without a CUDA device every test here skips.  The file
+imports neither JAX nor the JAX package, so on a machine with the card it
+runs without them:
+
+    python -m pytest --noconftest -q tests/test_torch_bn_stats_gpu.py
+
+Shapes are the nine BatchNorm inputs of ResNet-50 at 224 and batch 32
+(``benchmark/pallas_bn_stats.py:113-119``), plus a ragged and a large-mean
+case.  TF32 is switched off so that fp32 means fp32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch.ops import bn_stats as bs
+from mxnet_tpu_torch.ops import nn as ops
+
+RESNET50_BN = [(32, 64, 112, 112), (32, 64, 56, 56), (32, 256, 56, 56),
+               (32, 128, 28, 28), (32, 512, 28, 28), (32, 256, 14, 14),
+               (32, 1024, 14, 14), (32, 512, 7, 7), (32, 2048, 7, 7)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _x(shape, dev, dtype=torch.float32, mean=0.0, std=0.5, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev) * std + mean
+    return x.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RESNET50_BN + [(3, 5, 7, 9), (2, 3, 1, 1),
+                                                  (4, 6)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_kernel_matches_plain_on_card(cuda, shape, dtype, shifted):
+    """Mean and biased variance against the plain version on the same
+    input (fp32 accumulation both; atol 2e-5 on a variance of 0.25)."""
+    x = _x(shape, cuda, getattr(torch, dtype))
+    pivot = x.reshape(shape[0], shape[1], -1)[0, :, 0].float().contiguous() \
+        if shifted else None
+    before = bs.bn_stats.launches
+    mean, var = bs.bn_stats(x, pivot)
+    torch.cuda.synchronize()
+    assert bs.bn_stats.launches == before + 1
+    assert mean.dtype == var.dtype == torch.float32
+    assert mean.shape == var.shape == (shape[1],)
+    rmean, rvar = bs._reference(x, pivot)
+    torch.testing.assert_close(mean, rmean, rtol=0, atol=2e-5)
+    torch.testing.assert_close(var, rvar, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_large_mean_is_exact_with_the_pivot(cuda, dtype):
+    """Mean 1000, std 1: shifted by the pivot, the variance stays within
+    1e-4 of a float64 computation and the mean within 1e-6 relative."""
+    x = _x((8, 16, 28, 28), cuda, getattr(torch, dtype), mean=1000.0,
+           std=1.0)
+    mean, var = bs.bn_stats(x, x[0, :, 0, 0].float().contiguous())
+    x64 = x.double()
+    torch.testing.assert_close(var.double(),
+                               x64.var((0, 2, 3), unbiased=False),
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(mean.double(), x64.mean((0, 2, 3)),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_two_runs_give_the_same_bits(cuda):
+    x = _x((32, 64, 56, 56), cuda)
+    a = bs.bn_stats(x, x[0, :, 0, 0].contiguous())
+    b = bs.bn_stats(x, x[0, :, 0, 0].contiguous())
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_layouts_the_kernel_refuses(cuda):
+    x = _x((4, 8, 6, 6), cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        bs.bn_stats(x.to(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="non-contiguous"):
+        bs.bn_stats(x[:, :, :, :3])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bs.bn_stats(x.half())
+    with pytest.raises(ValueError, match="pivot"):
+        bs.bn_stats(x, torch.zeros(8, dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 64, 28, 28), (4, 32, 7, 7)])
+def test_training_batch_norm_and_grads_match_cpu(cuda, shape):
+    """Training-mode ``batch_norm`` on the card (kernel statistics) against
+    the same op on the CPU (plain statistics): output, statistics and the
+    input/gamma/beta gradients within 1e-4 (O(1) values)."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(*shape).astype("float32") * 2 + 0.5
+    gamma = rng.uniform(0.5, 1.5, shape[1]).astype("float32")
+    beta = rng.randn(shape[1]).astype("float32")
+    dy = rng.randn(*shape).astype("float32")
+
+    def run(dev):
+        xt, gt, bt = (torch.from_numpy(a).to(dev).requires_grad_()
+                      for a in (x, gamma, beta))
+        out, m, v = ops.batch_norm(xt, gt, bt, None, None, 1e-5, False, 1,
+                                   training=True)
+        out.backward(torch.from_numpy(dy).to(dev))
+        return [t.detach().cpu() for t in (out, m, v, xt.grad, gt.grad,
+                                           bt.grad)]
+
+    before = bs.bn_stats.launches
+    got = run(cuda)
+    assert bs.bn_stats.launches == before + 1
+    for a, b in zip(got, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * max(1.0, b.abs().max()))

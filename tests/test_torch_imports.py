@@ -45,7 +45,11 @@ def test_port_imports_with_jax_blocked():
             "import mxnet_tpu_torch\n"
             "import mxnet_tpu_torch.ops.flash_attention, "
             "mxnet_tpu_torch.models.bert, mxnet_tpu_torch.serving, "
-            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.gluon.model_zoo\n"
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.gluon.model_zoo, "
+            "mxnet_tpu_torch.ops.bn_stats, mxnet_tpu_torch.autograd, "
+            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.gluon.loss, "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.parameter, "
+            "mxnet_tpu_torch.ops.optimizer_ops\n"
             "assert not any(k.split('.')[0] in ('jax', 'mxnet_tpu') and "
             "sys.modules[k] is not None for k in sys.modules)\n"
             "print('ok')\n")
