@@ -11,9 +11,12 @@ Phases, in order; any failure exits non-zero:
 2. build: the kernel library from ``mxnet_tpu_torch/csrc/`` with ``nvcc``;
 3. kernel vs plain: the flash-attention kernel against its plain PyTorch
    version on the card (fp32 atol 1e-4; bf16 atol 2e-2 against the plain
-   version in fp32 on the same bf16 inputs, i.e. the output's rounding), and
-   its time beside the plain version, ``F.scaled_dot_product_attention``
-   (a yardstick the port never calls) and the card's bound;
+   version in fp32 on the same bf16 inputs, i.e. the output's rounding),
+   at BERT's bucket (8, 12, 128, 64), its maximum length (8, 12, 512, 64)
+   and ragged T and D, and its fp32 time at both shapes, causal off and
+   on, beside the plain version, ``F.scaled_dot_product_attention`` (a
+   yardstick the port never calls) and the card's bound, on the 3xTF32
+   tensor-core rate and on the FMA rate;
 4. slice: BERT-base (12 layers, 768 units, 12 heads, vocab 30522, seeded
    random weights) behind ``ModelRuntime`` (buckets 1, 2, 4, 8) and
    ``Batcher``, answering 16 requests of 128 tokens from 4 client threads.
@@ -82,6 +85,7 @@ SEQ = 128
 N_REQUESTS = 16
 N_CLIENTS = 4
 SLICE_QKV = (8, 12, SEQ, 64)           # bucket 8 of bert_base: (B, H, T, D)
+LONG_QKV = (8, 12, 512, 64)            # the same at bert_base's max_length
 IMAGE = (3, 224, 224)
 AXPY_SHAPE = (8, 64, 112, 112)         # bucket 8 of ResNet-50's stem output
 BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -95,6 +99,10 @@ BN_PER_FORWARD = 53                    # BatchNorm layers of ResNet-50 v1
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12,    # fp32 outside the tensor cores
               torch.bfloat16: 989e12, torch.float16: 989e12}
+# fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
+# (495 TFLOP/s) for each fp32 one
+TENSOR_FLOPS = {torch.float32: 495e12 / 3,
+                torch.bfloat16: 989e12, torch.float16: 989e12}
 
 
 def log(msg):
@@ -124,15 +132,16 @@ def device_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(shape, dtype, causal=False):
+def attention_bound_ms(shape, dtype, causal=False, peak=None):
     """Least time for (B, H, T, D) attention: read q, k, v and write out
-    once, and 4*B*H*T^2*D operations (half that when causal)."""
+    once, and 4*B*H*T^2*D operations (half that when causal) at ``peak``
+    FLOP/s, by default the tensor cores' rate for ``dtype``."""
     b, h, t, d = shape
     elem = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * h * t * d * elem
     ops = 4 * b * h * t * t * d * (0.5 if causal else 1.0)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    by_ops = ops / (peak or TENSOR_FLOPS[dtype]) * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -169,21 +178,24 @@ def phase_build():
     log(f"[build] {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
             log(f"[build] {line.strip()}")
 
 
-def phase_kernel(fa):
+def phase_kernel(fa, card):
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     cases = [(SLICE_QKV, torch.float32, False),
              (SLICE_QKV, torch.float32, True),
              (SLICE_QKV, torch.bfloat16, False),
              (SLICE_QKV, torch.bfloat16, True),
+             (LONG_QKV, torch.float32, True),
              ((2, 2, 200, 64), torch.float32, False),
              ((2, 2, 200, 64), torch.float32, True),
              ((2, 2, 256, 128), torch.float32, False),
-             ((2, 2, 256, 128), torch.float32, True)]
+             ((2, 2, 256, 128), torch.float32, True),
+             ((1, 3, 77, 40), torch.float32, False)]
     slice_err = None
     for shape, dtype, causal in cases:
         q, k, v = (torch.from_numpy(rng.randn(*shape).astype("float32"))
@@ -204,27 +216,42 @@ def phase_kernel(fa):
         if (shape, dtype, causal) == (SLICE_QKV, torch.float32, False):
             slice_err = err
 
-    q, k, v = (torch.from_numpy(rng.randn(*SLICE_QKV).astype("float32"))
-               .to(dev) for _ in range(3))
-    scale = 1.0 / math.sqrt(SLICE_QKV[-1])
     # q/k/v were just written by the QKV projection in the real caller, so
-    # they are timed warm in L2 (12.6 MB of the 50 MB cache), not flushed
-    kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
-    plain_ms = device_ms(lambda: fa._reference(q, k, v, False, scale))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=scale))
-    bound_ms, bound_by = attention_bound_ms(SLICE_QKV, torch.float32)
-    log(f"[kernel] {SLICE_QKV} fp32: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+    # they are timed warm in L2 (12.6 MB of the 50 MB cache; 50 MB at T=512),
+    # not flushed
+    timed = {}
+    for shape in (SLICE_QKV, LONG_QKV):
+        q, k, v = (torch.from_numpy(rng.randn(*shape).astype("float32"))
+                   .to(dev) for _ in range(3))
+        scale = 1.0 / math.sqrt(shape[-1])
+        for causal in (False, True):
+            r = {"ms": device_ms(lambda: fa.flash_attention(
+                     q, k, v, causal=causal, scale=scale)),
+                 "plain_ms": device_ms(lambda: fa._reference(
+                     q, k, v, causal, scale)),
+                 "library_ms": device_ms(
+                     lambda: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=causal, scale=scale))}
+            r["bound_ms"], r["bound_by"] = attention_bound_ms(
+                shape, torch.float32, causal)
+            r["bound_fma_ms"] = attention_bound_ms(
+                shape, torch.float32, causal,
+                peak=PEAK_FLOPS[torch.float32])[0]
+            timed[shape, causal] = r
+            log(f"[kernel] {shape} fp32 causal={causal}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; 3xTF32 tensor-core rate), fp32 FMA "
+                f"bound {r['bound_fma_ms']:.4f} ms; on {card}")
+    main = timed[SLICE_QKV, False]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:101",
             "shape": list(SLICE_QKV), "dtype": "float32",
-            "max_abs_err": slice_err, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": slice_err, **main, "kernel_ms": main["ms"],
+            "causal_ms": timed[SLICE_QKV, True]["ms"],
+            "t512": {"shape": list(LONG_QKV), **timed[LONG_QKV, False],
+                     "causal": timed[LONG_QKV, True]}}
 
 
 def serve(batcher, payloads):
@@ -878,7 +905,7 @@ def main():
 
     card = phase_environment()
     phase_build()
-    record = phase_kernel(fa)
+    record = phase_kernel(fa, card)
     record["launches"] = phase_slice(fa, card)
     rtc_record = phase_rtc(card)
     path = phase_resnet(card)

@@ -20,7 +20,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "nvcc_path", "BUILD_DIR", "SOURCES"]
+__all__ = ["load", "link", "bind", "nvcc_path", "BUILD_DIR", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "flash_attention.cu",
@@ -64,7 +64,8 @@ def _digest():
     return h.hexdigest()[:16]
 
 
-def _bind(lib):
+def bind(lib):
+    """Declare the C signatures of the library's entry points."""
     f = lib.mxt_flash_attention_fwd
     f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
         [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -92,33 +93,40 @@ def load():
             return _lib
         so = BUILD_DIR / f"libmxnet_tpu_torch_{_digest()}.so"
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # private names, then an atomic rename: a concurrent build in
-            # another process never loads a half-written library
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o")
-                    for src in SOURCES]
-            nvcc = nvcc_path()
             t0 = time.perf_counter()
-            compiles = [[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
-                        for src, obj in zip(SOURCES, objs)]
-            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-            try:
-                procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True)
-                         for cmd in compiles]
-                logs = [proc.communicate()[0] for proc in procs]
-                build_log = "".join(logs)
-                for cmd, proc, out in zip(compiles, procs, logs):
-                    _check(proc.returncode, cmd, out)
-                proc = subprocess.run(link, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-                build_log += proc.stdout
-                _check(proc.returncode, link, proc.stdout)
-            finally:
-                for obj in objs:
-                    obj.unlink(missing_ok=True)
-            os.replace(tmp, so)
+            build_log = link(SOURCES, so)
             build_seconds = time.perf_counter() - t0
-        _lib = _bind(ctypes.CDLL(str(so)))
+        _lib = bind(ctypes.CDLL(str(so)))
         return _lib
+
+
+def link(sources, so):
+    """Compile ``sources`` (one ``nvcc -c`` each, all started together) and
+    link them into the shared library ``so``; returns nvcc's output, which
+    holds the ``ptxas -v`` lines.  Raises if a step fails."""
+    so = Path(so)
+    so.parent.mkdir(parents=True, exist_ok=True)
+    # private names, then an atomic rename: a concurrent build in another
+    # process never loads a half-written library
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o")
+            for src in sources]
+    nvcc = nvcc_path()
+    compiles = [[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in compiles]
+        logs = [proc.communicate()[0] for proc in procs]
+        for c, proc, out in zip(compiles, procs, logs):
+            _check(proc.returncode, c, out)
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        _check(proc.returncode, cmd, proc.stdout)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    os.replace(tmp, so)
+    return "".join(logs) + proc.stdout

@@ -73,18 +73,24 @@ def flash_attention(q, k, v, causal=False, scale=None):
         raise ValueError(f"q, k, v must all lie on the CPU or all on CUDA, "
                          f"got {q.device}, {k.device}, {v.device}")
     _check(q, k, v)
+    out = _launch(_build.load(), q, k, v, causal, scale_v)
+    flash_attention.launches += 1
+    return out
+
+
+def _launch(lib, q, k, v, causal, scale):
+    """One launch of ``lib``'s kernel on checked CUDA inputs; raises if the
+    launch fails."""
     b, h, t, d = q.shape
     out = torch.empty_like(q)
-    lib = _build.load()
     rc = lib.mxt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b * h, t, d, scale_v, int(bool(causal)), _DTYPES[q.dtype],
+        b * h, t, d, scale, int(bool(causal)), _DTYPES[q.dtype],
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: "
             f"{lib.mxt_error_string(rc).decode()} (cudaError {rc})")
-    flash_attention.launches += 1
     return out
 
 

@@ -30,10 +30,28 @@ def cuda():
     return torch.device("cuda")
 
 
+def _check_against_plain(q, k, v, causal):
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = fa._reference(q.float(), k.float(), v.float(), causal,
+                        q.shape[-1] ** -0.5)
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+
+
+# T at and around the 16-row warp tile and the 64-row K tile (1, 15, 17,
+# 65, 513), D at and off the mma depths (8, 30, 40, 100, 128), BERT's
+# bucket and its maximum length (512)
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(8, 12, 128, 64), (2, 2, 200, 64),
                                    (2, 2, 256, 128), (1, 3, 77, 40),
-                                   (1, 2, 50, 30)])
+                                   (1, 2, 50, 30), (2, 3, 1, 64),
+                                   (1, 2, 15, 8), (2, 2, 17, 100),
+                                   (1, 3, 65, 128), (1, 2, 513, 64),
+                                   (8, 12, 512, 64)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_kernel_matches_plain_on_card(cuda, shape, causal, dtype):
@@ -42,15 +60,57 @@ def test_kernel_matches_plain_on_card(cuda, shape, causal, dtype):
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(cuda, dt)
                for x in _qkv(*shape))
-    before = fa.flash_attention.launches
-    out = fa.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
-    assert out.dtype == dt and out.shape == q.shape
-    ref = fa._reference(q.float(), k.float(), v.float(), causal,
-                        shape[-1] ** -0.5)
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+    _check_against_plain(q, k, v, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["large_scores", "distinct_v"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_kernel_hard_inputs_on_card(cuda, inputs, causal, dtype):
+    """``large_scores``: q and k scaled by 8, so scores reach ~+-100 and the
+    online softmax rescales often, and the low TF32 parts carry real
+    weight.  ``distinct_v``: V[row, col] = cos(0.7 row + 1.3 col), a value
+    per key and column, so a key that meets the wrong V row in P V shows.
+    fp32 is also held within 1e-4 of the same attention in float64, where
+    the plain fp32 version's own rounding does not count."""
+    shape = (2, 3, 200, 64)
+    q, k, v = _qkv(*shape, seed=3)
+    if inputs == "large_scores":
+        q, k = 8 * q, 8 * k
+    else:
+        rows = np.arange(shape[2])[:, None]
+        cols = np.arange(shape[3])[None, :]
+        v = np.broadcast_to(np.cos(0.7 * rows + 1.3 * cols),
+                            shape).astype("float32")
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda, dt)
+               for x in (q, k, v))
+    _check_against_plain(q, k, v, causal)
+    if dtype == "float32":
+        t = shape[2]
+        s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) \
+            * shape[3] ** -0.5
+        if causal:
+            above = torch.ones(t, t, dtype=torch.bool, device=cuda).triu(1)
+            s = s.masked_fill(above, -np.inf)
+        exact = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1),
+                             v.double())
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(out.double(), exact, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_kernel_reruns_bitwise_on_card(cuda, dtype):
+    """No atomics and a fixed order of every sum: the same bits twice."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in _qkv(8, 12, 128, 64))
+    for causal in (False, True):
+        first = fa.flash_attention(q, k, v, causal=causal)
+        second = fa.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
