@@ -62,8 +62,42 @@ Phases, in order; any failure exits non-zero:
    device memory, finite losses, 53 launches per step.  This is the slice's
    main path: the kernel's ``launches`` in the JSON line count it.
 
-Phases 4, 6 and 9 print a ``[profile]`` breakdown of one micro-batch or
-step.  The last two lines are the kernels' JSON record and the device line.
+10. BERT pretraining parity: ``bert_base`` at full width (768 units, 12
+   heads, vocab 30522) cut to 2 layers, seeded weights, masked LM + next
+   sentence with MXNet's loop (``SoftmaxCrossEntropyLoss``, Adam at lr
+   1e-4) on ``example/bert/pretrain.py``'s synthetic batch (batch 4, T 128,
+   20 masked positions), 2 steps on the card and on the CPU plain path, on
+   the flash route (no mask) and the dense one (a padded mask).  Losses,
+   the gradients of both steps and parameters after step 2 must agree
+   within 1e-4 of each tensor's max or twice the CPU run's own spread
+   under a batch reordering, plus for parameters what Adam makes of the
+   runs' gradient disagreement: its step is scale-free in the gradient, so
+   a fraction R apart in the gradient is up to 2 R lr apart a step, 2 lr
+   where the gradient is rounding noise (the key bias); the elements that
+   need it are counted, at most 32 outside the key biases, all in tensors
+   that start at zero;
+11. BERT-base pretraining, the slice's main path: 12 layers at full width,
+   batch 32, T 128, 20 masked positions, Adam lr 1e-4, fp32 with TF32 off,
+   ``dropout=0.0`` (the flash route): 3 warm and 10 timed steps: step ms,
+   sequences/s, tokens/s, peak device memory, finite losses that fall,
+   12 kernel launches and 12 backward calls a step, no plain attention on
+   the card; a ``[profile]`` of one step; then 5 steps of the dense route
+   (an all-ones ``valid_mask``, the bench's input) for its step time.
+
+Phase 3b follows phase 3: the flash route's gradient (``dQ``, ``dK``,
+``dV``, the port's dense ``_attention_backward``) against the gradient of
+the plain version at (8, 12, 128, 64) and (8, 12, 512, 64), fp32 and bf16,
+causal off and on, at phase 11's (32, 12, 128, 64) fp32, and ragged T and D
+(fp32 within 1e-4 of each tensor's max; bf16 within that plus half a bf16
+ulp of it, 2^-8, the gradient's one rounding), and at BERT's serving bucket
+and phase 11's shape the times of the backward, of forward plus backward
+and of SDPA's forward plus backward (a yardstick the port never calls),
+beside the backward's bound.  Phase 3 holds and times the forward at phase
+11's shape too.
+
+Phases 4, 6, 9 and 11 print a ``[profile]`` breakdown of one micro-batch
+or step.  The last two lines are the kernels' JSON record and the device
+line.
 """
 from __future__ import annotations
 
@@ -96,6 +130,15 @@ TRAIN_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
 PARITY_BATCH, PARITY_STEPS = 8, 2
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 32, 3, 10
 BN_PER_FORWARD = 53                    # BatchNorm layers of ResNet-50 v1
+VOCAB, MASKED = 30522, 20              # bench.py:340-378, pretrain.py
+PRETRAIN_LR = 1e-4
+PT_PARITY_BATCH, PT_PARITY_LAYERS, PT_PARITY_STEPS = 4, 2, 2
+# phase 10's elements outside the key biases that may rely on Adam's
+# allowance, all in tensors initialised at zero (measured on an H100: 12 on
+# the flash route, 20 on the dense one)
+ALLOWANCE_CAP = 32
+PT_BATCH, PT_LAYERS, PT_WARM, PT_TIMED, PT_DENSE = 32, 12, 3, 10, 5
+TRAIN_QKV = (PT_BATCH, 12, SEQ, 64)    # what phase 11 gives the kernel
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12,    # fp32 outside the tensor cores
               torch.bfloat16: 989e12, torch.float16: 989e12}
@@ -117,13 +160,21 @@ def check(cond, msg):
 def device_ms(fn, iters=50):
     """Device time per call.  The stream is held by a sleep kernel while
     the host enqueues all calls, so the calls run back to back and the
-    events see device time, not the host's launch rate."""
-    for _ in range(5):
+    events see device time, not the host's launch rate.  The sleep lasts
+    at least twice the host's time to enqueue them (measured on warm-up
+    calls; an autograd forward and backward takes ~1 ms of host time), at
+    2 GHz, H100 SXM's top clock, and never under 50M cycles."""
+    for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - t0) / 3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(max(50_000_000, int(2 * host_s * iters * 2e9)))
     start.record()
     for _ in range(iters):
         fn()
@@ -191,12 +242,13 @@ def phase_kernel(fa, card):
              (SLICE_QKV, torch.bfloat16, False),
              (SLICE_QKV, torch.bfloat16, True),
              (LONG_QKV, torch.float32, True),
+             (TRAIN_QKV, torch.float32, False),
              ((2, 2, 200, 64), torch.float32, False),
              ((2, 2, 200, 64), torch.float32, True),
              ((2, 2, 256, 128), torch.float32, False),
              ((2, 2, 256, 128), torch.float32, True),
              ((1, 3, 77, 40), torch.float32, False)]
-    slice_err = None
+    errs = {}
     for shape, dtype, causal in cases:
         q, k, v = (torch.from_numpy(rng.randn(*shape).astype("float32"))
                    .to(dev, dtype) for _ in range(3))
@@ -213,18 +265,18 @@ def phase_kernel(fa, card):
         check(math.isfinite(err) and err <= tol,
               f"kernel disagrees with plain version at {shape} {dtype} "
               f"causal={causal}: {err}")
-        if (shape, dtype, causal) == (SLICE_QKV, torch.float32, False):
-            slice_err = err
+        if dtype == torch.float32 and not causal:
+            errs[shape] = err
 
     # q/k/v were just written by the QKV projection in the real caller, so
-    # they are timed warm in L2 (12.6 MB of the 50 MB cache; 50 MB at T=512),
-    # not flushed
+    # they are timed warm in L2 (12.6 MB of the 50 MB cache; 50 MB at T=512
+    # and at the pretraining batch), not flushed
     timed = {}
-    for shape in (SLICE_QKV, LONG_QKV):
+    for shape in (SLICE_QKV, LONG_QKV, TRAIN_QKV):
         q, k, v = (torch.from_numpy(rng.randn(*shape).astype("float32"))
                    .to(dev) for _ in range(3))
         scale = 1.0 / math.sqrt(shape[-1])
-        for causal in (False, True):
+        for causal in (False, True) if shape != TRAIN_QKV else (False,):
             r = {"ms": device_ms(lambda: fa.flash_attention(
                      q, k, v, causal=causal, scale=scale)),
                  "plain_ms": device_ms(lambda: fa._reference(
@@ -248,10 +300,116 @@ def phase_kernel(fa, card):
             "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:101",
             "shape": list(SLICE_QKV), "dtype": "float32",
-            "max_abs_err": slice_err, **main, "kernel_ms": main["ms"],
+            "max_abs_err": errs[SLICE_QKV], **main, "kernel_ms": main["ms"],
             "causal_ms": timed[SLICE_QKV, True]["ms"],
             "t512": {"shape": list(LONG_QKV), **timed[LONG_QKV, False],
-                     "causal": timed[LONG_QKV, True]}}
+                     "causal": timed[LONG_QKV, True]},
+            "train": {"shape": list(TRAIN_QKV), "max_abs_err": errs[TRAIN_QKV],
+                      **timed[TRAIN_QKV, False]}}
+
+
+def flash_backward_bound_ms(shape, dtype):
+    """Least time for the attention backward: read q, k, v and dO once,
+    write dQ, dK and dV once, and 4 products of B*H*T^2*D multiply-adds
+    (dV, dP, dQ, dK; the recompute of S would be a fifth) at the tensor
+    cores' rate for ``dtype``."""
+    b, h, t, d = shape
+    elem = torch.empty((), dtype=dtype).element_size()
+    by_bytes = 7 * b * h * t * d * elem / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * 2 * b * h * t * t * d / TENSOR_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def phase_flash_grad(fa, card):
+    """The flash route's gradient against the plain version's on the card,
+    and its times at BERT's serving bucket and at the pretraining batch;
+    returns the fields the flash record gains."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(4)
+    cases = [(SLICE_QKV, torch.float32, False),
+             (SLICE_QKV, torch.float32, True),
+             (SLICE_QKV, torch.bfloat16, False),
+             (SLICE_QKV, torch.bfloat16, True),
+             (LONG_QKV, torch.float32, False),
+             (LONG_QKV, torch.float32, True),
+             (LONG_QKV, torch.bfloat16, True),
+             (TRAIN_QKV, torch.float32, False),
+             ((2, 2, 200, 64), torch.float32, True),
+             ((1, 3, 77, 40), torch.float32, False)]
+    errs = {}
+    for shape, dtype, causal in cases:
+        q, k, v, g = (torch.from_numpy(rng.randn(*shape).astype("float32"))
+                      .to(dev, dtype) for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        launches = fa.flash_attention.launches
+        calls = fa.flash_attention.backward_calls
+        fa.flash_attention(*leaves, causal=causal).backward(g)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches == launches + 1 and
+              fa.flash_attention.backward_calls == calls + 1,
+              "the flash route's gradient did not run the kernel forward "
+              "and the port's backward once each")
+        plain = [x.float().requires_grad_() for x in (q, k, v)]
+        fa._reference(*plain, causal, shape[-1] ** -0.5).backward(g.float())
+        tol = 1e-4 + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0)
+        err = 0.0
+        for got, ref in zip(leaves, plain):
+            check(got.grad is not None and got.grad.dtype == dtype,
+                  f"no {dtype} gradient reached a leaf input")
+            err = max(err, (got.grad.float() - ref.grad).abs().max().item()
+                      / ref.grad.abs().max().item())
+        log(f"[flash_grad] {tuple(shape)} {str(dtype)[6:]} causal={causal}: "
+            f"dQ, dK, dV max_abs_err {err:.3e} of each tensor's max "
+            f"(tol {tol:.3e})")
+        check(math.isfinite(err) and err <= tol,
+              f"flash gradient disagrees with the plain version's at "
+              f"{shape} {dtype} causal={causal}: {err}")
+        if dtype == torch.float32 and not causal:
+            errs.setdefault(shape, err)
+
+    timed = {shape: _time_flash_grad(fa, rng, shape, card)
+             for shape in (SLICE_QKV, TRAIN_QKV)}
+    r = timed[SLICE_QKV]
+    r["backward_max_abs_err"] = errs[SLICE_QKV]
+    r["train_backward"] = {"shape": list(TRAIN_QKV), **timed[TRAIN_QKV],
+                           "backward_max_abs_err": errs[TRAIN_QKV]}
+    return r
+
+
+def _time_flash_grad(fa, rng, shape, card):
+    """The flash route's backward and forward+backward at fp32 ``shape``,
+    beside the plain route's and SDPA's, and the backward's bound."""
+    dev = torch.device("cuda")
+    q, k, v, g = (torch.from_numpy(rng.randn(*shape).astype("float32"))
+                  .to(dev) for _ in range(4))
+    scale = 1.0 / math.sqrt(shape[-1])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(attend):
+        return lambda: torch.autograd.grad(attend(*leaves), leaves, g)
+
+    sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    r = {"backward_ms": device_ms(lambda: fa._attention_backward(
+             q, k, v, g, False, scale)),
+         "fwd_bwd_ms": device_ms(fwd_bwd(
+             lambda *a: fa.flash_attention(*a, scale=scale))),
+         "plain_fwd_bwd_ms": device_ms(fwd_bwd(
+             lambda *a: fa._reference(*a, False, scale))),
+         "sdpa_fwd_bwd_ms": device_ms(fwd_bwd(
+             lambda *a: F.scaled_dot_product_attention(*a, scale=scale))),
+         "sdpa_backward_ms": device_ms(lambda: torch.autograd.grad(
+             sdpa_out, leaves, g, retain_graph=True))}
+    r["backward_bound_ms"], r["backward_bound_by"] = \
+        flash_backward_bound_ms(shape, torch.float32)
+    log(f"[flash_grad] {shape} fp32: backward (dense recompute, torch "
+        f"matmuls) {r['backward_ms']:.4f} ms, bound "
+        f"{r['backward_bound_ms']:.4f} ms ({r['backward_bound_by']}; 3xTF32 "
+        f"tensor-core rate), SDPA backward {r['sdpa_backward_ms']:.4f} ms; "
+        f"forward+backward: flash route {r['fwd_bwd_ms']:.4f} ms, plain "
+        f"{r['plain_fwd_bwd_ms']:.4f} ms, SDPA {r['sdpa_fwd_bwd_ms']:.4f} "
+        f"ms; on {card}")
+    return r
 
 
 def serve(batcher, payloads):
@@ -288,6 +446,27 @@ def serve(batcher, payloads):
         wall
 
 
+@contextlib.contextmanager
+def no_plain_attention_on_cuda(fa):
+    """Fails the run if the plain attention sees a CUDA tensor inside the
+    block."""
+    plain_on_cuda = []
+    real_reference = fa._reference
+
+    def guarded_reference(q, k, v, causal, scale):
+        if q.is_cuda or k.is_cuda or v.is_cuda:
+            plain_on_cuda.append(tuple(q.shape))
+        return real_reference(q, k, v, causal, scale)
+
+    fa._reference = guarded_reference
+    try:
+        yield
+    finally:
+        fa._reference = real_reference
+    check(not plain_on_cuda,
+          f"plain attention ran on CUDA tensors: {plain_on_cuda[:3]}")
+
+
 def phase_slice(fa, card):
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.models import get_bert_model
@@ -316,26 +495,18 @@ def phase_slice(fa, card):
     tokens = rng.randint(0, 30522, (N_REQUESTS, SEQ)).astype("int32")
     segments = rng.randint(0, 2, (N_REQUESTS, SEQ)).astype("int32")
 
-    plain_on_cuda = []
-    real_reference = fa._reference
-
-    def guarded_reference(q, k, v, causal, scale):
-        if q.is_cuda or k.is_cuda or v.is_cuda:
-            plain_on_cuda.append(tuple(q.shape))
-        return real_reference(q, k, v, causal, scale)
-
     batcher = Batcher(rt, max_latency_ms=5)
-    fa._reference = guarded_reference
     telemetry.reset()
     try:
-        fa.flash_attention.launches = 0          # main path starts here
-        answers, lat1, wall1 = serve(batcher, list(zip(tokens, segments)))
-        launches = fa.flash_attention.launches   # main path ends here
-        snap = telemetry.snapshot()
-        # the same requests again: the batcher's worker thread is warm now
-        _, lat2, wall2 = serve(batcher, list(zip(tokens, segments)))
+        with no_plain_attention_on_cuda(fa):
+            fa.flash_attention.launches = 0          # main path starts here
+            answers, lat1, wall1 = serve(batcher,
+                                         list(zip(tokens, segments)))
+            launches = fa.flash_attention.launches   # main path ends here
+            snap = telemetry.snapshot()
+            # the same requests again: the worker thread is warm now
+            _, lat2, wall2 = serve(batcher, list(zip(tokens, segments)))
     finally:
-        fa._reference = real_reference
         batcher.close()
 
     counters = snap["counters"]
@@ -351,8 +522,6 @@ def phase_slice(fa, card):
     check(batches >= 1 and launches == 12 * batches,
           f"{launches} flash launches for {batches} micro-batches "
           f"(want 12 per micro-batch)")
-    check(not plain_on_cuda,
-          f"plain attention ran on CUDA tensors: {plain_on_cuda}")
 
     # the same weights through the plain path on the CPU, in fp32
     cpu_net = build("cpu")
@@ -618,15 +787,18 @@ def phase_resnet(card):
 def phase_bn_kernel(bs, card):
     """The bn-stats kernel against its plain version, and its times per
     fp32 geometry; returns ({shape: (kernel, plain, var_mean, bound ms,
-    bound_by)}, the largest error at those shapes)."""
+    bound_by)}, the largest fp32 error at those shapes, the largest fp16
+    error)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(s, dt, 0.0, 0.5) for s in RESNET50_BN
-             for dt in (torch.float32, torch.bfloat16)]
+             for dt in (torch.float32, torch.bfloat16, torch.float16)]
     cases += [((3, 5, 7, 9), torch.float32, 0.0, 0.5),
+              ((3, 5, 7, 9), torch.float16, 0.0, 0.5),
               ((8, 16, 28, 28), torch.float32, 1000.0, 1.0),
-              ((8, 16, 28, 28), torch.bfloat16, 1000.0, 1.0)]
-    times, path_err = {}, 0.0
+              ((8, 16, 28, 28), torch.bfloat16, 1000.0, 1.0),
+              ((8, 16, 28, 28), torch.float16, 1000.0, 1.0)]
+    times, path_err, fp16_err = {}, 0.0, 0.0
     for shape, dtype, mean, std in cases:
         x = (torch.randn(shape, generator=gen, device=dev) * std + mean) \
             .to(dtype)
@@ -644,6 +816,8 @@ def phase_bn_kernel(bs, card):
               f"mean {mean}: {err}")
         line = (f"[bn_stats] {shape} {str(dtype)[6:]} mean {mean:g}: "
                 f"max_abs_err {err:.3e} (tol {tol:g})")
+        if dtype == torch.float16:
+            fp16_err = max(fp16_err, err)
         if shape in RESNET50_BN and dtype == torch.float32:
             path_err = max(path_err, err)
             k = device_ms(lambda: bs.bn_stats(x, pivot))
@@ -657,8 +831,9 @@ def phase_bn_kernel(bs, card):
                      f"{bound / k:.2f} of the bound")
         log(line)
     log(f"[bn_stats] timed on {card}, inputs warm in L2 where they fit "
-        f"(the real caller reads what the convolution just wrote)")
-    return times, path_err
+        f"(the real caller reads what the convolution just wrote); fp16 "
+        f"max_abs_err {fp16_err:.3e}")
+    return times, path_err, fp16_err
 
 
 @contextlib.contextmanager
@@ -870,7 +1045,7 @@ def profile_train_step(step, step_ms, top=12):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def bn_record(times, counts, err, launches):
+def bn_record(times, counts, err, fp16_err, launches):
     """The bn-stats kernel's JSON record: times summed over the BatchNorm
     inputs of one batch-32 forward."""
     check(set(counts) == set(times),
@@ -889,10 +1064,371 @@ def bn_record(times, counts, err, launches):
             "shape": f"the {sum(counts.values())} BatchNorm inputs of one "
                      f"batch-{TRAIN_BATCH} ResNet-50 v1 forward; ms summed",
             "dtype": "float32", "launches": launches, "max_abs_err": err,
-            "ms": total[0], "kernel_ms": total[0], "plain_ms": total[1],
+            "fp16_max_abs_err": fp16_err, "ms": total[0],
+            "kernel_ms": total[0], "plain_ms": total[1],
             "bound_ms": total[3],
             "bound_by": by.pop(),
             "library_ms": total[2]}
+
+
+def synth_batch(rng, batch, seq, vocab, n_masked):
+    """``example/bert/pretrain.py``'s synthetic MLM+NSP batch (copied: the
+    script imports nothing of the example)."""
+    tokens = rng.randint(4, vocab, (batch, seq))
+    segments = (np.arange(seq)[None, :] >= seq // 2).astype("int32") * \
+        np.ones((batch, 1), "int32")
+    valid = np.ones((batch, seq), dtype="float32")
+    positions = np.stack([rng.choice(seq, n_masked, replace=False)
+                          for _ in range(batch)])
+    mlm_labels = np.take_along_axis(tokens, positions, axis=1)
+    tokens_masked = tokens.copy()
+    np.put_along_axis(tokens_masked, positions, 3, axis=1)  # [MASK]=3
+    nsp_labels = rng.randint(0, 2, (batch,))
+    return (tokens_masked.astype("int32"), segments, valid,
+            positions.astype("int32"), mlm_labels.astype("float32"),
+            nsp_labels.astype("float32"))
+
+
+def _bert(layers, device):
+    from mxnet_tpu_torch.models import get_bert_model
+    return get_bert_model("bert_base", vocab_size=VOCAB, max_length=512,
+                          dropout=0.0, num_layers=layers, device=device)
+
+
+def _pretrain_step_fn(net, batch, trainer, on_grads=None):
+    """One step of the user's loop (``example/bert/pretrain.py``'s
+    ``step``) on ``batch`` = (tokens, segments, valid_mask or None,
+    positions, mlm labels, nsp labels), tensors on the net's device;
+    ``on_grads()`` runs between the backward and the update."""
+    from mxnet_tpu_torch import autograd, gluon
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    tok, seg, valid, pos, mlm_y, nsp_y = batch
+
+    def step():
+        with autograd.record():
+            _, _, mlm, nsp = net(tok, seg, valid, pos)
+            loss = sce(mlm.reshape(-1, VOCAB), mlm_y.reshape(-1)).mean() + \
+                sce(nsp, nsp_y).mean()
+        autograd.backward(loss)
+        if on_grads is not None:
+            on_grads()
+        trainer.step(tok.shape[0])
+        return loss.detach()
+    return step
+
+
+def _pretrain(net, batch, steps):
+    """``steps`` Adam steps; returns (losses, the gradients of every step,
+    the final parameters), all on the host."""
+    from mxnet_tpu_torch import gluon
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": PRETRAIN_LR})
+    grads = []
+    step = _pretrain_step_fn(net, batch, trainer, lambda: grads.append(
+        {k: p.grad().cpu().numpy().copy() for k, p in params.items()}))
+    losses = [float(step().cpu()) for _ in range(steps)]
+    return losses, grads, {k: p.data().detach().cpu().numpy()
+                           for k, p in params.items()}
+
+
+def adam_allowance(grads, ref_grads, lr):
+    """Per element, how far apart two runs' Adam steps may take it given
+    how far apart their gradients were.  Adam's step ``lr * m / sqrt(v)``
+    is scale-free in the gradient: where the gradients of steps 1..s part
+    by a fraction R_s of the reference's, the step-s moves part by at most
+    about 2 R_s lr, and by 2 lr once R_s >= 1 (the sign itself).  So an
+    element whose gradient is rounding noise (the attention's key bias, zero
+    in exact arithmetic) may part by 2 lr a step, and one whose gradient
+    the runs agree on to 1e-6 by 2e-6 lr."""
+    out, worst = {}, {}
+    for g, r in zip(grads, ref_grads):
+        for k in r:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                frac = np.abs(g[k] - r[k]) / np.abs(r[k])
+            frac = np.nan_to_num(frac, nan=0.0, posinf=1.0)
+            worst[k] = np.maximum(worst.get(k, 0.0), np.minimum(frac, 1.0))
+            out[k] = out.get(k, 0.0) + 2 * lr * worst[k]
+    return out
+
+
+def _key_bias(name, shape):
+    """Mask of the attention key-bias elements of parameter ``name``: the
+    middle third of each layer's ``qkv.bias``.  Their gradient is zero in
+    exact arithmetic (a key bias shifts each score row by a constant, which
+    softmax ignores), so each run's is rounding noise."""
+    mask = np.zeros(shape, dtype=bool)
+    if name.endswith("attention.qkv.bias"):
+        mask[shape[0] // 3:2 * shape[0] // 3] = True
+    return mask
+
+
+def _adam_param_check(what, card, ref, again, grads, zero_init):
+    """Parameters after ``steps`` Adam steps, card against CPU: each
+    element within 1e-4 of its tensor's max, or twice the CPU run's own
+    spread under a reordered batch where that is larger, plus the element's
+    :func:`adam_allowance`.  The spread is the reordered run's distance
+    past its own allowance.  ``grads`` holds every step's gradients of the
+    (card, CPU, reordered CPU) runs, each step's already held within the
+    gradient tolerance, so a large allowance is granted only where the
+    gradient is small against its tensor's largest.  The elements that
+    rely on the allowance are counted: any number of key-bias elements
+    (:func:`_key_bias`; the gradient check bounds their card gradient at
+    rounding level) and at most ``ALLOWANCE_CAP`` others, all in the
+    tensors named in ``zero_init``.  Those start at zero, so after a few
+    Adam steps their largest element, which scales the tolerance, is
+    itself a few lr; a tensor that starts at its initial weights may have
+    no element that needs the allowance."""
+    card_g, ref_g, again_g = grads
+    allow = adam_allowance(card_g, ref_g, PRETRAIN_LR)
+    allow_again = adam_allowance(again_g, ref_g, PRETRAIN_LR)
+    spread = (0.0, "")
+    for k, r in ref.items():
+        scale = max(float(np.abs(r).max()), 1e-30)
+        past = np.abs(again[k] - r) - allow_again[k]
+        spread = max(spread, (float(past.max(initial=0.0)) / scale, k))
+    tol = max(1e-4, 2 * spread[0])
+    err, n_key, n_other, others, n_weight = (0.0, ""), 0, 0, {}, 0
+    far, far_allow = 0.0, 0.0
+    for k, r in ref.items():
+        scale = max(float(np.abs(r).max()), 1e-30)
+        d = np.abs(card[k] - r)
+        err = max(err, (float((d - allow[k]).max(initial=0.0)) / scale, k))
+        past = d > tol * scale
+        key = _key_bias(k, r.shape)
+        n_key += int((past & key).sum())
+        if (past & ~key).any():
+            others[k] = int((past & ~key).sum())
+            n_other += others[k]
+            n_weight += 0 if k in zero_init else others[k]
+        if past.any() and d[past].max() > far:
+            far = float(d[past].max())
+            far_allow = float(np.broadcast_to(allow[k], d.shape)[past][
+                np.argmax(d[past])])
+    log(f"[pretrain] {what}: card vs CPU past Adam's allowance "
+        f"{err[0]:.3e} of the tensor's max (worst {err[1]}), CPU vs CPU "
+        f"reordered {spread[0]:.3e} (worst {spread[1]}), tol {tol:.3e}; "
+        f"elements past tol that rely on the allowance (2 R lr a step, R "
+        f"the runs' gradient disagreement; 2 lr = {2 * PRETRAIN_LR:g} at "
+        f"most): {n_key} key-bias and {n_other} others (at most "
+        f"{ALLOWANCE_CAP}, all in tensors that start at zero) {others}, "
+        f"the farthest {far:.3e} apart with an allowance of "
+        f"{far_allow:.3e}")
+    check(all(np.isfinite(v).all() for v in card.values()),
+          f"non-finite {what}")
+    check(err[0] <= tol, f"card pretraining disagrees with the CPU plain "
+                         f"run: {what}")
+    check(n_other <= ALLOWANCE_CAP and n_weight == 0,
+          f"{what}: {n_other} elements outside the key biases rely on "
+          f"Adam's allowance (at most {ALLOWANCE_CAP}), {n_weight} of them "
+          f"in tensors that do not start at zero (none may)")
+
+
+def phase_pretrain_parity(fa):
+    """2 Adam steps of a 2-layer bert_base-width model, card against the
+    CPU plain path, on the flash and the dense route."""
+    rng = np.random.RandomState(5)
+    batch = list(synth_batch(rng, PT_PARITY_BATCH, SEQ, VOCAB, MASKED))
+    padded = batch[2].copy()
+    for i, n in enumerate((SEQ, 100, 77, 64)[:PT_PARITY_BATCH]):
+        padded[i, n:] = 0.0
+    cpu_net = _bert(PT_PARITY_LAYERS, "cpu")
+    cpu_net.initialize(generator=torch.Generator().manual_seed(1))
+    state = {k: v.clone() for k, v in cpu_net.state_dict().items()}
+    zero_init = {k for k, v in state.items() if not v.any()}
+    perm = np.roll(np.arange(PT_PARITY_BATCH), 1)
+
+    def run(device, valid, order):
+        net = _bert(PT_PARITY_LAYERS, device)
+        net.load_state_dict({k: v.to(device) for k, v in state.items()})
+        arrays = [a if a is None else a[order] for a in
+                  batch[:2] + [valid] + batch[3:]]
+        tensors = [None if a is None else torch.from_numpy(a).to(device)
+                   for a in arrays]
+        return _pretrain(net, tensors, PT_PARITY_STEPS)
+
+    for route, valid in (("flash", None), ("dense", padded)):
+        t0 = time.perf_counter()
+        ref = run("cpu", valid, np.arange(PT_PARITY_BATCH))
+        again = run("cpu", valid, perm)
+        cpu_s = time.perf_counter() - t0
+        with no_plain_attention_on_cuda(fa):
+            fa.flash_attention.launches = 0
+            fa.flash_attention.backward_calls = 0
+            card = run("cuda", valid, np.arange(PT_PARITY_BATCH))
+            torch.cuda.synchronize()
+            launches = fa.flash_attention.launches
+            calls = fa.flash_attention.backward_calls
+        want = PT_PARITY_LAYERS * PT_PARITY_STEPS if route == "flash" else 0
+        log(f"[pretrain] parity, {route} route: {PT_PARITY_LAYERS}-layer "
+            f"bert_base width, batch {PT_PARITY_BATCH}, {PT_PARITY_STEPS} "
+            f"Adam steps; 2 CPU plain runs in {cpu_s:.1f} s; card: "
+            f"{launches} flash launches, {calls} backward calls (want "
+            f"{want} each)")
+        check(launches == want and calls == want,
+              f"{route} route: {launches} flash launches and {calls} "
+              f"backward calls in {PT_PARITY_STEPS} steps (want {want})")
+        for i in range(PT_PARITY_STEPS):
+            spread = abs(again[0][i] - ref[0][i]) / abs(ref[0][i])
+            err = abs(card[0][i] - ref[0][i]) / abs(ref[0][i])
+            tol = max(1e-4, 2 * spread)
+            log(f"[pretrain] {route}: loss of step {i + 1}: card "
+                f"{card[0][i]:.6f}, CPU {ref[0][i]:.6f}, relative "
+                f"{err:.3e}, CPU reordered {spread:.3e}, tol {tol:.3e}")
+            check(math.isfinite(card[0][i]) and err <= tol,
+                  f"{route}: loss of step {i + 1} disagrees")
+        for i in range(PT_PARITY_STEPS):
+            spread, spread_at = _rel(again[1][i], ref[1][i])
+            grad_tol = max(1e-4, 2 * spread)
+            err, err_at = _rel(card[1][i], ref[1][i])
+            log(f"[pretrain] {route}: step-{i + 1} gradients: card vs CPU "
+                f"{err:.3e} of the tensor's max (worst {err_at}), CPU vs "
+                f"CPU reordered {spread:.3e} (worst {spread_at}), tol "
+                f"{grad_tol:.3e}")
+            check(all(np.isfinite(v).all() for v in card[1][i].values()),
+                  f"{route}: non-finite step-{i + 1} gradients")
+            check(err <= grad_tol, f"{route}: step-{i + 1} gradients "
+                                   f"disagree")
+        _adam_param_check(f"{route}: parameters after step "
+                          f"{PT_PARITY_STEPS}", card[2], ref[2], again[2],
+                          (card[1], ref[1], again[1]), zero_init)
+
+
+def phase_pretrain(fa, card):
+    """The slice's main path: BERT-base pretraining at full width and
+    depth, batch 32; returns (flash launches, backward calls)."""
+    from mxnet_tpu_torch import gluon, telemetry
+    net = _bert(PT_LAYERS, None)                     # the default: the GPU
+    check(next(net.parameters()).is_cuda, "model did not land on cuda")
+    net.initialize(generator=torch.Generator(
+        device=next(net.parameters()).device).manual_seed(0))
+    n_params = sum(p.numel() for p in net.parameters())
+    rng = np.random.RandomState(6)
+    arrays = synth_batch(rng, PT_BATCH, SEQ, VOCAB, MASKED)
+    tok, seg, valid, pos, mlm_y, nsp_y = (torch.from_numpy(a).cuda()
+                                          for a in arrays)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": PRETRAIN_LR})
+    step = _pretrain_step_fn(net, (tok, seg, None, pos, mlm_y, nsp_y),
+                             trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.enable()
+    telemetry.reset()
+    with no_plain_attention_on_cuda(fa):
+        fa.flash_attention.launches = 0          # the main path starts
+        fa.flash_attention.backward_calls = 0
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(PT_WARM)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PT_TIMED):
+            losses.append(step())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = fa.flash_attention.launches   # the main path ends
+        calls = fa.flash_attention.backward_calls
+    snap = telemetry.snapshot()
+    telemetry.disable()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(l) for l in losses]
+    steps = PT_WARM + PT_TIMED
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == PT_LAYERS * steps and calls == PT_LAYERS * steps,
+          f"{launches} flash launches and {calls} backward calls in {steps} "
+          f"steps (want {PT_LAYERS} each a step)")
+    step_ms = (t2 - t1) * 1e3 / PT_TIMED
+    upd = snap["spans"].get("trainer.update", {"calls": 1, "total_ms": 0.0})
+    log(f"[pretrain] bert_base ({n_params} parameters) batch {PT_BATCH} x "
+        f"T {SEQ}, {MASKED} masked, Adam lr {PRETRAIN_LR:g}, fp32 (TF32 "
+        f"off), flash route: {PT_WARM} warm steps {(t1 - t0) * 1e3:.1f} ms, "
+        f"{PT_TIMED} timed steps {step_ms:.3f} ms each, "
+        f"{PT_BATCH * 1e3 / step_ms:.2f} sequences/s, "
+        f"{PT_BATCH * SEQ * 1e3 / step_ms:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB; {launches} flash launches and {calls} "
+        f"backward calls ({PT_LAYERS} each a step); trainer.update "
+        f"{upd['total_ms'] / max(upd['calls'], 1):.3f} ms host per step; "
+        f"on {card}")
+    log(f"[pretrain] loss per step: {[round(l, 4) for l in losses]}")
+    profile_pretrain_step(fa, step, step_ms)
+
+    # the dense route: the same function with the bench's all-ones mask
+    dense = _pretrain_step_fn(net, (tok, seg, valid, pos, mlm_y, nsp_y),
+                              trainer)
+    fa.flash_attention.launches = 0
+    with no_plain_attention_on_cuda(fa):
+        dense_losses = [float(dense())]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PT_DENSE):
+            dense_losses.append(float(dense()))
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3 / PT_DENSE
+    check(fa.flash_attention.launches == 0,
+          "the dense route launched the flash kernel")
+    check(all(math.isfinite(l) for l in dense_losses),
+          f"dense losses {dense_losses}")
+    log(f"[pretrain] dense route (all-ones valid_mask): {PT_DENSE} steps "
+        f"{dense_ms:.3f} ms each ({PT_BATCH * 1e3 / dense_ms:.2f} "
+        f"sequences/s; one warm step first) against the flash route's "
+        f"{step_ms:.3f} ms; on {card}")
+    return launches, calls
+
+
+def profile_pretrain_step(fa, step, step_ms, top=12):
+    """One pretraining step with CUDA events around each call of the
+    attention backward (``_attention_backward``), for its device time; then
+    device time by kernel over another step (CUPTI through torch.profiler):
+    the top kernels, the flash forward's and the grouped Adam update's
+    (its ``_foreach`` kernels) shares, and the idle share."""
+    from torch.autograd import DeviceType
+    real, spans = fa._attention_backward, []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    fa._attention_backward = timed
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        fa._attention_backward = real
+    bwd_ms = sum(a.elapsed_time(b) for a, b in spans)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        log(f"[profile] pretrain step: {step_ms:.3f} ms wall; attention "
+            f"backward {bwd_ms:.3f} ms in {len(spans)} calls (CUDA events); "
+            f"device time by kernel not measured (no CUDA events in the "
+            f"trace)")
+        return
+    flash_ms = sum(e.self_device_time_total for e in kernels
+                   if "fa_forward" in e.key) / 1e3
+    adam_ms = sum(e.self_device_time_total for e in kernels
+                  if "multi_tensor_apply" in e.key) / 1e3
+    log(f"[profile] pretrain step batch {PT_BATCH}: {step_ms:.3f} ms wall "
+        f"(mean of {PT_TIMED}), device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / step_ms:.3f}, {len(kernels)} kernels, "
+        f"{sum(e.count for e in kernels)} launches; attention backward "
+        f"{bwd_ms:.3f} ms in {len(spans)} calls (CUDA events, "
+        f"{bwd_ms / busy_ms:.3f} of busy), flash forward kernel "
+        f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f}), Adam _foreach "
+        f"kernels {adam_ms:.3f} ms ({adam_ms / busy_ms:.3f})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
 
 
 def main():
@@ -906,14 +1442,21 @@ def main():
     card = phase_environment()
     phase_build()
     record = phase_kernel(fa, card)
+    grad = phase_flash_grad(fa, card)
+    record["train"].update(grad.pop("train_backward"))
+    record.update(grad)
     record["launches"] = phase_slice(fa, card)
     rtc_record = phase_rtc(card)
     path = phase_resnet(card)
     bs = importlib.import_module("mxnet_tpu_torch.ops.bn_stats")
-    times, bn_err = phase_bn_kernel(bs, card)
+    times, bn_err, bn_fp16_err = phase_bn_kernel(bs, card)
     phase_train_parity(bs, path)
     launches, counts = phase_train(bs, path, card)
-    bn = bn_record(times, counts, bn_err, launches)
+    bn = bn_record(times, counts, bn_err, bn_fp16_err, launches)
+    phase_pretrain_parity(fa)
+    # the pretraining batch's counts beside the kernel's times at its shape
+    record["train"]["launches"], record["train"]["backward_calls"] = \
+        phase_pretrain(fa, card)
     print(json.dumps({"kernels": [record, rtc_record, bn]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@
 //    slices of channel c's N*H*W elements.  S is chosen by the wrapper so
 //    that C*S fills the card: at (32, 64, 112, 112) one block per channel
 //    would be 64 blocks on 132 SMs.  Each thread strides over the slice in
-//    V-element vectors (16 bytes: V = 4 fp32 or 8 bf16 when H*W and the
+//    V-element vectors (16 bytes: V = 4 fp32 or 8 bf16/fp16 when H*W and the
 //    base address allow it, else 2 or 1: 7x7 = 49 takes the scalar path,
 //    still coalesced), accumulates in fp32 registers, and the block reduces
 //    with warp shuffles and one shared-memory step in a fixed order.  Each
@@ -35,6 +35,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -44,6 +45,7 @@ constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
@@ -158,7 +160,8 @@ cudaError_t launch_v(const void* x, const float* pivot, float* partial,
 
 extern "C" {
 
-// x: contiguous (n, channels, hw) on `device`, dtype 0 = fp32, 1 = bf16;
+// x: contiguous (n, channels, hw) on `device`, dtype 0 = fp32, 1 = bf16,
+// 2 = fp16;
 // pivot: (channels,) fp32 or null; partial: 2 * channels * splits fp32
 // scratch; mean, var: (channels,) fp32.  `vec` elements are loaded at a
 // time: it must divide hw, and x must be aligned to vec elements (the
@@ -176,6 +179,7 @@ int mxt_bn_stats(const void* x, const float* pivot, float* partial,
   switch (dtype) {
     case 0: err = launch_v<float>(x, pivot, partial, mean, var, n, channels, hw, splits, vec, s); break;
     case 1: err = launch_v<__nv_bfloat16>(x, pivot, partial, mean, var, n, channels, hw, splits, vec, s); break;
+    case 2: err = launch_v<__half>(x, pivot, partial, mean, var, n, channels, hw, splits, vec, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;

@@ -20,10 +20,6 @@ from ..block import HybridBlock, is_deferred
 __all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
            "BatchNorm", "Flatten"]
 
-# MXNet's other Activation types come with the layers that use them
-_ACTIVATIONS = {"tanh": torch.tanh}
-
-
 def _param(shape, dtype, device, requires_grad=True):
     """A parameter of ``shape``, or a deferred one when a width is 0."""
     if 0 in shape:
@@ -63,7 +59,10 @@ class HybridSequential(HybridBlock):
 
 class Dense(HybridBlock):
     """Fully-connected layer, weight ``(units, in_units)`` as MXNet (and
-    ``nn.Linear``) store it; ``in_units=0`` defers it."""
+    ``nn.Linear``) store it; ``in_units=0`` defers it.  ``activation`` is
+    any type of ``Activation`` (relu, sigmoid, tanh, softrelu, softsign),
+    applied to the output as ``mxnet_tpu/gluon/nn/basic_layers.py:126-127``
+    does."""
 
     def __init__(self, units, in_units=0, activation=None, use_bias=True,
                  flatten=True, dtype=torch.float32, device=None):
@@ -74,9 +73,9 @@ class Dense(HybridBlock):
         self.bias = nn.Parameter(torch.empty(units, dtype=dtype,
                                              device=device)) \
             if use_bias else None
-        if activation is not None and activation not in _ACTIVATIONS:
+        if activation is not None and activation not in ops._ACT:
             raise ValueError(f"unknown activation {activation!r}")
-        self._act = _ACTIVATIONS.get(activation)
+        self._act_type = activation
 
     def forward(self, x):
         if is_deferred(self.weight):
@@ -85,7 +84,8 @@ class Dense(HybridBlock):
             self._materialize({"weight": (self._units, in_units)},
                               x.device)
         y = ops.fully_connected(x, self.weight, self.bias, self._flatten)
-        return y if self._act is None else self._act(y)
+        return y if self._act_type is None else ops.activation(
+            y, self._act_type)
 
 
 class Dropout(HybridBlock):

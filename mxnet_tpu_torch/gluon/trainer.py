@@ -19,8 +19,10 @@ class Trainer:
     """``Trainer(params, optimizer, optimizer_params)``
     (``mxnet_tpu/gluon/trainer.py:25``).  ``params`` is a dict (taken in
     the order of its sorted names, e.g. ``net.collect_params()``) or a list
-    of ``Parameter``s; ``optimizer`` a name or an ``Optimizer``.
-    ``kvstore`` is accepted for MXNet's signature; one device uses none."""
+    of ``Parameter``s; ``optimizer`` a name (``"sgd"``, ``"adam"``) or an
+    ``Optimizer``, and ``optimizer_params`` its keyword arguments, an
+    ``lr_scheduler`` among them.  ``kvstore`` is accepted for MXNet's
+    signature; one device uses none."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device"):
@@ -50,9 +52,15 @@ class Trainer:
 
     @property
     def learning_rate(self):
+        """The optimizer's learning rate: its scheduler's at the current
+        update count when ``optimizer_params`` gave it an
+        ``lr_scheduler``."""
         return self._optimizer.learning_rate
 
     def set_learning_rate(self, lr):
+        """Set the optimizer's learning rate; raises ``UserWarning`` when an
+        ``lr_scheduler`` owns it, as ``mxnet_tpu/gluon/trainer.py:149-154``
+        does."""
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):

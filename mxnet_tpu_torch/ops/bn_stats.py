@@ -22,7 +22,7 @@ from . import _build
 
 __all__ = ["bn_stats", "batch_stats"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # resident 256-thread blocks an SM holds; stage 1 aims at one full wave
 _BLOCKS_PER_SM = 8
 # fewest elements a stage-1 block reduces, so that small channels do not
@@ -44,7 +44,8 @@ def _reference(x, pivot=None):
 
 def _check(x, pivot):
     if x.dtype not in _DTYPES:
-        raise TypeError(f"bn_stats takes float32 or bfloat16, got {x.dtype}")
+        raise TypeError(f"bn_stats takes float32, bfloat16 or float16, got "
+                        f"{x.dtype}")
     if x.dim() < 2 or x.numel() == 0:
         raise ValueError(f"expected a non-empty (N, C, ...) tensor, got "
                          f"{tuple(x.shape)}")

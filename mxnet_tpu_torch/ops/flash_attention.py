@@ -1,4 +1,5 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention: a hand-written Hopper forward kernel, its plain version,
+and the gradient.
 
 Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  ``flash_attention``
 keeps the JAX function's signature and ``(B, H, T, D)`` layout, minus the
@@ -6,6 +7,13 @@ TPU's block sizes and interpreter switch.  On a CUDA tensor it launches the
 CUDA kernel in ``csrc/flash_attention.cu`` or raises; it never falls back.
 On a CPU tensor it runs ``_reference``, the plain PyTorch version the tests
 and ``chip_smoke.py`` hold the kernel against.
+
+The function is differentiable on both devices, as the JAX function's
+``custom_vjp`` (:129) is.  The JAX package has no backward kernel: its
+``_fa_bwd`` (:155-163) is XLA's vjp of the dense ``_reference``.  Here the
+backward is :func:`_attention_backward`, the same dense recompute written
+out in torch matmuls in fp32; it does not call ``_reference``, so on the
+card the forward's kernel launch stays the only attention forward.
 
 Unlike the JAX function, the kernel masks a ragged T itself in both modes,
 so no shape bypasses it, and it takes D <= 128 as it is, without padding
@@ -59,23 +67,67 @@ def _check(q, k, v):
         raise ValueError(f"empty input {tuple(q.shape)}")
 
 
+def _attention_backward(q, k, v, grad_out, causal, scale):
+    """``(dQ, dK, dV)`` of ``softmax(Q K^T * scale) V`` for ``grad_out``,
+    in fp32 and cast to the inputs' dtype: the vjp of ``_reference`` that
+    ``_fa_bwd`` takes, with P recomputed from Q and K (so a bf16 output's
+    rounding does not enter the gradient) and the softmax's vjp
+    ``dS = P * (dP - rowsum(P * dP))``."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, grad_out))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        mask = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, _NEG)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel on CUDA tensors, ``_reference`` on CPU tensors, with the
+    backward of :func:`_attention_backward`.  Without grad mode, or with no
+    input that requires grad, it builds no graph node."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        kinds = {x.device.type for x in (q, k, v)}
+        if kinds == {"cpu"}:
+            return _reference(q, k, v, causal, scale)
+        if kinds != {"cuda"}:
+            raise ValueError(f"q, k, v must all lie on the CPU or all on "
+                             f"CUDA, got {q.device}, {k.device}, {v.device}")
+        _check(q, k, v)
+        out = _launch(_build.load(), q, k, v, causal, scale)
+        flash_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        flash_attention.backward_calls += 1
+        return (*_attention_backward(q, k, v, grad_out, ctx.causal,
+                                     ctx.scale), None, None)
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
     """Blockwise attention, ``(B, H, T, D) -> (B, H, T, D)``.
 
     ``scale=None`` means ``1/sqrt(D)``.  The output has the input's dtype;
-    the kernel accumulates in fp32.  ``flash_attention.launches`` counts
-    kernel launches (plain-version calls are not counted)."""
+    the kernel accumulates in fp32.  With grad mode on and an input that
+    requires grad, the output carries the gradient of
+    :func:`_attention_backward`.  ``flash_attention.launches`` counts
+    kernel launches (plain-version calls are not counted);
+    ``flash_attention.backward_calls`` counts backward passes, on either
+    device."""
     scale_v = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    kinds = {x.device.type for x in (q, k, v)}
-    if kinds == {"cpu"}:
-        return _reference(q, k, v, causal, scale_v)
-    if kinds != {"cuda"}:
-        raise ValueError(f"q, k, v must all lie on the CPU or all on CUDA, "
-                         f"got {q.device}, {k.device}, {v.device}")
-    _check(q, k, v)
-    out = _launch(_build.load(), q, k, v, causal, scale_v)
-    flash_attention.launches += 1
-    return out
+    return _FlashAttention.apply(q, k, v, bool(causal), scale_v)
 
 
 def _launch(lib, q, k, v, causal, scale):
@@ -95,3 +147,4 @@ def _launch(lib, q, k, v, causal, scale):
 
 
 flash_attention.launches = 0
+flash_attention.backward_calls = 0

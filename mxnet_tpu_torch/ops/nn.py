@@ -155,7 +155,9 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     ``(out, mean, var)`` (``var`` biased).  The statistics come from the
     bn-stats kernel (``ops/bn_stats.py``) with the pivot ``x[0, c, 0, ...]``
     as its shift; ``out``'s gradient flows through them (the pivot is a
-    constant).  A channel axis other than 1 is moved to 1 first, a copy.
+    constant).  A channel axis other than 1 is moved to 1 first, and the
+    statistics read a contiguous copy of any input that is not contiguous
+    (``channels_last`` included).
     The moving statistics are not touched: see
     :func:`update_moving_stats`."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
@@ -165,7 +167,9 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         out = F.batch_norm(x, moving_mean, moving_var, g, beta,
                            training=False, eps=float(eps))
         return out if ax == 1 else out.movedim(1, ax)
-    x = data if ax == 1 else data.movedim(ax, 1).contiguous()
+    # the kernel reads contiguous NCHW only: any other layout (a moved
+    # channel axis, channels_last, a strided view) is copied here
+    x = (data if ax == 1 else data.movedim(ax, 1)).contiguous()
     pivot = x[(0, slice(None)) + (0,) * (x.dim() - 2)].detach().float() \
         .contiguous()
     mean32, var32 = batch_stats(x, pivot)

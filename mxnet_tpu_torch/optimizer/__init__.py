@@ -1,3 +1,3 @@
 """Optimizers of the port (``mx.optimizer``)."""
-from .optimizer import (SGD, Optimizer, Updater, create,  # noqa: F401
-                        get_updater, register)
+from .optimizer import (SGD, Adam, Optimizer, Updater,  # noqa: F401
+                        create, get_updater, register)

@@ -1,34 +1,41 @@
 """The grouped (multi-tensor) optimizer update (counterpart of
-``mxnet_tpu/optimizer/aggregate.py``, its SGD rule).
+``mxnet_tpu/optimizer/aggregate.py``, its SGD and Adam rules).
 
 MXNet 1.5 batches the updates of many small tensors into one launch
 (``multi_sgd_mom_update``); the JAX package groups them into one jitted
-call.  Here a group is the weights, gradients and momentum buffers of one
-device and dtype, updated by a few ``torch._foreach_*`` calls (one launch
-each for up to ``opt.aggregate_num`` tensors) that repeat the operations of
-``ops/optimizer_ops.py`` in the same order, so the numbers are those of the
-per-parameter path.  Members that cannot join a group (another optimizer
-class, a gradient on another device or of another dtype, a tensor already
-in the group) take the per-parameter path.
+call.  Here a group is the weights, gradients and states (SGD's momentum,
+Adam's mean and variance) of one device and dtype, updated by a few
+``torch._foreach_*`` calls (one launch each for up to ``opt.aggregate_num``
+tensors) that repeat the operations of ``ops/optimizer_ops.py`` in the same
+order, so the numbers are those of the per-parameter path, bit for bit.
+Members that cannot join a group (another optimizer class, a gradient on
+another device or of another dtype, a tensor already in the group) take
+the per-parameter path.
 """
 from __future__ import annotations
 
 import torch
 
-from .optimizer import SGD
+from .optimizer import SGD, Adam
 
 __all__ = ["update_multi"]
 
 
-def _sgd_group(opt, indices, weights, grads, moms):
-    opt._update_count(indices)
-    lrs, wds = opt._get_lrs(indices), opt._get_wds(indices)
+def _apply_wd(opt, weights, grads, wds):
+    """``_apply_wd`` of ``ops/optimizer_ops.py`` over a group."""
     g = torch._foreach_mul(grads, opt.rescale_grad)
     clip = opt.clip_gradient
     if clip is not None and clip > 0:
         torch._foreach_clamp_min_(g, -clip)
         torch._foreach_clamp_max_(g, clip)
     torch._foreach_add_(g, torch._foreach_mul(weights, wds))
+    return g
+
+
+def _sgd_group(opt, indices, weights, grads, moms):
+    opt._update_count(indices)
+    lrs, wds = opt._get_lrs(indices), opt._get_wds(indices)
+    g = _apply_wd(opt, weights, grads, wds)
     torch._foreach_mul_(g, lrs)
     if moms is None:
         torch._foreach_sub_(weights, g)
@@ -38,7 +45,34 @@ def _sgd_group(opt, indices, weights, grads, moms):
     torch._foreach_add_(weights, moms)
 
 
-_RULES = {SGD: _sgd_group}
+def _adam_group(opt, indices, weights, grads, states):
+    """``adam_update`` over a group; ``opt._get_lrs`` folds each index's
+    bias correction into its lr, as ``_AdamRule.lrs`` does."""
+    opt._update_count(indices)
+    lrs, wds = opt._get_lrs(indices), opt._get_wds(indices)
+    means, variances = [s[0] for s in states], [s[1] for s in states]
+    g = _apply_wd(opt, weights, grads, wds)
+    torch._foreach_mul_(means, opt.beta1)
+    torch._foreach_add_(means, torch._foreach_mul(g, 1 - opt.beta1))
+    torch._foreach_mul_(variances, opt.beta2)
+    g2 = torch._foreach_mul(g, g)
+    torch._foreach_mul_(g2, 1 - opt.beta2)
+    torch._foreach_add_(variances, g2)
+    step = torch._foreach_mul(means, lrs)
+    den = torch._foreach_sqrt(variances)
+    torch._foreach_add_(den, opt.epsilon)
+    torch._foreach_div_(step, den)
+    torch._foreach_sub_(weights, step)
+
+
+_RULES = {SGD: _sgd_group, Adam: _adam_group}
+
+
+def _tensors(state):
+    """The tensors of a state: none, one buffer, or a tuple (Adam's)."""
+    if state is None:
+        return ()
+    return (state,) if isinstance(state, torch.Tensor) else tuple(state)
 
 
 def _group_key(weight, grad, state):
@@ -55,7 +89,7 @@ def update_multi(opt, indices, weights, grads, states):
     groups, fallback, taken = {}, [], set()
     for pos, (w, g, s) in enumerate(zip(weights, grads, states)):
         key = None if rule is None else _group_key(w, g, s)
-        ptrs = {w.data_ptr()} | ({s.data_ptr()} if s is not None else set())
+        ptrs = {w.data_ptr()} | {t.data_ptr() for t in _tensors(s)}
         if key is None or ptrs & taken:
             fallback.append(pos)
             continue

@@ -1,7 +1,7 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``, the part
-the training slice needs): the ``Optimizer`` base with its registry and
-per-parameter multipliers, ``SGD``, ``create``, ``Updater`` and
-``get_updater``.
+the training slices need): the ``Optimizer`` base with its registry,
+per-parameter multipliers and learning-rate scheduler, ``SGD``, ``Adam``,
+``create``, ``Updater`` and ``get_updater``.
 
 Updates are in place on the weight and state tensors
 (``ops/optimizer_ops.py``); ``Updater`` hands a batch of parameters to the
@@ -10,20 +10,24 @@ a rule there.
 """
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
 
 from ..ops import optimizer_ops
 
-__all__ = ["Optimizer", "SGD", "Updater", "create", "get_updater",
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "get_updater",
            "register"]
 
 
 class Optimizer:
     """Base optimizer (``mxnet_tpu/optimizer/optimizer.py:63``): learning
     rate and weight decay with per-parameter multipliers, per-index update
-    counts, ``rescale_grad`` and ``clip_gradient``.
+    counts, ``rescale_grad`` and ``clip_gradient``.  With an
+    ``lr_scheduler`` (``mx.lr_scheduler``) the learning rate is the
+    scheduler's at the current ``num_update``; the scheduler's ``base_lr``
+    becomes ``learning_rate``.
 
     ``aggregate_num`` caps the parameters of one grouped update; 1 or less
     keeps the per-parameter path."""
@@ -46,12 +50,15 @@ class Optimizer:
         raise ValueError(f"Cannot find optimizer {name}")
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, begin_num_update=0,
-                 param_dict=None):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, param_dict=None):
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient
         self.aggregate_num = 256
         self.lr, self.wd = learning_rate, wd
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         self.begin_num_update = self.num_update = begin_num_update
         self._index_update_count = {}
         if param_idx2name is not None and not isinstance(param_idx2name,
@@ -75,10 +82,20 @@ class Optimizer:
         aggregate.update_multi(self, indices, weights, grads, states)
 
     def set_learning_rate(self, lr):
+        """Set the learning rate; refused when a scheduler owns it
+        (``mxnet_tpu/optimizer/optimizer.py:142-150``)."""
+        if self.lr_scheduler is not None:
+            raise UserWarning(
+                "LRScheduler of the optimizer has already been defined. Note "
+                "that set_learning_rate can mutate the value of the learning "
+                "rate of the optimizer only when the LRScheduler of the "
+                "optimizer is undefined.")
         self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     def set_lr_mult(self, args_lr_mult):
@@ -113,7 +130,8 @@ class Optimizer:
         return table.get(name, 1.0) if name is not None else 1.0
 
     def _get_lrs(self, indices):
-        return [self.lr * self._param_mult(i, self.lr_mult, "lr_mult")
+        base = self.learning_rate
+        return [base * self._param_mult(i, self.lr_mult, "lr_mult")
                 for i in indices]
 
     def _get_lr(self, index):
@@ -155,6 +173,45 @@ class SGD(Optimizer):
                                          momentum=self.momentum, **kwargs)
         else:
             optimizer_ops.sgd_update(weight, grad, **kwargs)
+
+
+@register
+class Adam(Optimizer):
+    """Adam (``mxnet_tpu/optimizer/optimizer.py:563``): the states are the
+    mean and the variance, and the bias correction is folded into the
+    learning rate with the parameter's own update count ``t``,
+    ``lr * sqrt(1 - beta2^t) / (1 - beta1^t)``.
+
+    ``lazy_update`` is accepted for MXNet's signature.  The reference's
+    lazy branch updates only the rows of a row-sparse gradient; the port
+    has no row-sparse gradients, so every update here is the dense one."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+        self.epsilon, self.lazy_update = epsilon, lazy_update
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight), torch.zeros_like(weight)
+
+    def _get_lrs(self, indices):
+        """The bias-corrected learning rates, after ``_update_count``."""
+        out = []
+        for lr, i in zip(super()._get_lrs(indices), indices):
+            t = self._index_update_count[i]
+            out.append(lr * (math.sqrt(1. - self.beta2 ** t)
+                             / (1. - self.beta1 ** t)))
+        return out
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        mean, var = state
+        optimizer_ops.adam_update(
+            weight, grad, mean, var, lr=self._get_lr(index),
+            beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+            wd=self._get_wd(index), rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient)
 
 
 create = Optimizer.create_optimizer

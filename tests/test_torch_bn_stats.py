@@ -174,3 +174,45 @@ def test_bn_stats_takes_only_cpu_or_cuda():
     x = torch.ones(2, 3, 4, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         bs.bn_stats(x)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "strided"])
+def test_training_batch_norm_takes_any_layout(layout, monkeypatch):
+    """A ``channels_last`` input and a strided view reach the statistics as
+    a contiguous NCHW copy (the kernel reads no other layout), and give
+    JAX's output and gradients (the tolerances of the test above)."""
+    x, gamma, beta = _data((4, 3, 5, 6), seed=5)
+    (out, bmean, bvar), vjp = _jax_train(x, gamma, beta, 1, False)
+    dy = np.random.RandomState(6).randn(*x.shape).astype("float32")
+    jdx, jdg, jdb = vjp((jnp.asarray(dy), jnp.zeros(3), jnp.zeros(3)))
+
+    seen = []
+    real = bs.bn_stats
+    monkeypatch.setattr(bs, "bn_stats", lambda t, p=None: seen.append(
+        t.is_contiguous()) or real(t, p))
+    if layout == "channels_last":
+        leaf = torch.from_numpy(x).to(memory_format=torch.channels_last) \
+            .requires_grad_()
+        xt = leaf
+        assert not xt.is_contiguous()
+    else:
+        wide = np.zeros((4, 3, 5, 12), "float32")
+        wide[..., ::2] = x
+        leaf = torch.from_numpy(wide).requires_grad_()
+        xt = leaf[..., ::2]
+    gt, bt = (torch.from_numpy(a).requires_grad_() for a in (gamma, beta))
+    o, m, v = ops.batch_norm(xt, gt, bt, torch.zeros(3), torch.ones(3),
+                             1e-5, False, 1, training=True)
+    o.backward(torch.from_numpy(dy))
+    assert seen == [True]
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(m.numpy(), np.asarray(bmean), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(v.numpy(), np.asarray(bvar), rtol=1e-5,
+                               atol=1e-4)
+    dx = leaf.grad if layout == "channels_last" else leaf.grad[..., ::2]
+    for port, ref in ((dx, jdx), (gt.grad, jdg), (bt.grad, jdb)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(port.numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max())

@@ -40,7 +40,7 @@ def _x(shape, dev, dtype=torch.float32, mean=0.0, std=0.5, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", RESNET50_BN + [(3, 5, 7, 9), (2, 3, 1, 1),
                                                   (4, 6)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shifted", [False, True])
 def test_kernel_matches_plain_on_card(cuda, shape, dtype, shifted):
     """Mean and biased variance against the plain version on the same
@@ -90,8 +90,8 @@ def test_layouts_the_kernel_refuses(cuda):
         bs.bn_stats(x.to(memory_format=torch.channels_last))
     with pytest.raises(ValueError, match="non-contiguous"):
         bs.bn_stats(x[:, :, :, :3])
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        bs.bn_stats(x.half())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        bs.bn_stats(x.double())
     with pytest.raises(ValueError, match="pivot"):
         bs.bn_stats(x, torch.zeros(8, dtype=torch.float64, device=cuda))
 
@@ -123,3 +123,51 @@ def test_training_batch_norm_and_grads_match_cpu(cuda, shape):
     for a, b in zip(got, run("cpu")):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * max(1.0, b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,dtype", [("channels_last", "float32"),
+                                          ("channels_last", "float16"),
+                                          ("strided", "float32"),
+                                          ("contiguous", "float16")])
+def test_training_batch_norm_any_layout_and_fp16_on_card(cuda, layout,
+                                                         dtype):
+    """Training-mode ``batch_norm`` takes ``channels_last``, a strided view
+    and fp16 on the card through the kernel (one launch, on a contiguous
+    copy where the input is not contiguous) and gives the CPU plain path's
+    output and gradients in the same dtype: within 1e-4 of each tensor's
+    largest magnitude, plus one fp16 ulp of it (2^-10) in fp16, where each
+    elementwise step rounds and the two devices' statistics and sums may
+    round to neighbours."""
+    shape = (8, 64, 28, 28)
+    rng = np.random.RandomState(1)
+    x = rng.randn(*shape).astype("float32") * 2 + 0.5
+    gamma = rng.uniform(0.5, 1.5, shape[1]).astype("float32")
+    beta = rng.randn(shape[1]).astype("float32")
+    dy = rng.randn(*shape).astype("float32")
+    dt = getattr(torch, dtype)
+
+    def run(dev):
+        leaf = torch.from_numpy(x).to(dev, dt)
+        if layout == "channels_last":
+            leaf = leaf.to(memory_format=torch.channels_last)
+        elif layout == "strided":
+            leaf = torch.cat([leaf, leaf], dim=3)
+        leaf.requires_grad_()
+        xt = leaf[..., :shape[3]] if layout == "strided" else leaf
+        gt, bt = (torch.from_numpy(a).to(dev, dt).requires_grad_()
+                  for a in (gamma, beta))
+        out, m, v = ops.batch_norm(xt, gt, bt, None, None, 1e-5, False, 1,
+                                   training=True)
+        out.backward(torch.from_numpy(dy).to(dev, dt))
+        dx = leaf.grad[..., :shape[3]] if layout == "strided" else leaf.grad
+        return [t.detach().float().cpu() for t in (out, m, v, dx, gt.grad,
+                                                   bt.grad)]
+
+    before = bs.bn_stats.launches
+    got = run(cuda)
+    assert bs.bn_stats.launches == before + 1
+    tol = 1e-4 + (2.0 ** -10 if dtype == "float16" else 0.0)
+    for a, b in zip(got, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * max(1.0, b.abs().max()))

@@ -7,11 +7,17 @@ because the tensors lie on the CPU.  Tolerance 2e-5: both sides compute in
 fp32 and differ only in summation order.  The CUDA kernel itself is held
 against the plain version on the card (marker ``gpu``; chip_smoke.py does
 the same at the serving shapes).
+
+The gradient: the port's autograd gradients (its ``_attention_backward``)
+against ``jax.vjp`` of the JAX function (its ``custom_vjp``, whose backward
+is XLA's vjp of the dense reference), within 1e-5 of each gradient's
+largest magnitude: both compute in fp32 and differ only in summation order.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import mxnet_tpu as mx
@@ -75,3 +81,55 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+@pytest.mark.parametrize("causal,t", [(False, 128), (True, 128),
+                                      (True, 77), (False, 256)])
+def test_flash_gradient_matches_jax_vjp(causal, t):
+    """T=128 and 256 take the Pallas path in the JAX function (interpret
+    mode); causal T=77 is ragged (JAX pads it, the port masks it)."""
+    q, k, v = _qkv(t=t, seed=3)
+    g = np.random.RandomState(4).randn(*q.shape).astype("float32")
+    out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 128,
+                                                  128, True),
+                       *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    calls = fa.flash_attention.backward_calls
+    o = fa.flash_attention(tq, tk, tv, causal=causal)
+    o.backward(torch.from_numpy(g))
+    assert fa.flash_attention.backward_calls == calls + 1
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out),
+                               rtol=TOL, atol=TOL)
+    for port, r in zip((tq.grad, tk.grad, tv.grad), ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(port.numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max())
+
+
+def test_backward_does_not_call_reference(monkeypatch):
+    """The forward on a CPU tensor is ``_reference``; the backward is
+    ``_attention_backward`` alone, which recomputes P from q and k itself
+    (on the card, the kernel launch stays the only attention forward)."""
+    calls = []
+    real = fa._reference
+    monkeypatch.setattr(fa, "_reference",
+                        lambda *a: calls.append(1) or real(*a))
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(b=1, h=2, t=64))
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert len(calls) == 1
+    out.sum().backward()
+    assert len(calls) == 1
+    assert all(x.grad is not None and x.grad.abs().sum() > 0
+               for x in (q, k, v))
+
+
+def test_no_graph_without_grad():
+    """Inputs that take no gradient, or grad mode off, run the forward
+    alone: no autograd node, as the served path needs."""
+    q, k, v = map(torch.from_numpy, _qkv(b=1, h=1, t=32))
+    assert fa.flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        out = fa.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is None

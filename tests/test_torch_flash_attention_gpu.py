@@ -1,5 +1,5 @@
 """The port's CUDA flash-attention kernel against its plain version, on the
-card.
+card, and the gradient of the kernel route against the plain version's.
 
 Marked ``gpu``: without a CUDA device every test here skips.  The file
 imports neither JAX nor the JAX package, so on a machine with the card it
@@ -139,3 +139,89 @@ def test_kernel_rejects_bad_input_on_card(cuda):
     wide = torch.zeros(1, 1, 8, 160, device=cuda)
     with pytest.raises(ValueError, match="D=160"):
         fa.flash_attention(wide, wide, wide)
+
+
+# half an ulp of the largest element, relative: the gradient is computed in
+# fp32 from the same inputs and rounded once to the input dtype
+_HALF_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+
+
+def _check_gradient_against_plain(q, k, v, g, causal):
+    """dQ, dK, dV of the kernel route (leaf inputs, ``backward``) against
+    the gradients of the plain version in fp32 on the same inputs: within
+    1e-4 of each tensor's largest magnitude, plus half an ulp of it for
+    bf16/fp16."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    launches = fa.flash_attention.launches
+    calls = fa.flash_attention.backward_calls
+    out = fa.flash_attention(*leaves, causal=causal)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 1
+    assert fa.flash_attention.backward_calls == calls + 1
+    plain = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    fa._reference(*plain, causal, q.shape[-1] ** -0.5).backward(g.float())
+    tol = 1e-4 + _HALF_ULP[str(q.dtype)[6:]]
+    for got, ref in zip(leaves, plain):
+        assert got.grad is not None and got.grad.dtype == q.dtype
+        torch.testing.assert_close(got.grad.float(), ref.grad, rtol=0,
+                                   atol=tol * ref.grad.abs().max().item())
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 12, 128, 64), (2, 2, 200, 64),
+                                   (1, 3, 77, 40), (2, 2, 256, 128),
+                                   (1, 2, 513, 64), (8, 12, 512, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_gradient_matches_plain_on_card(cuda, shape, causal, dtype):
+    """The flash route on CUDA carries a gradient (leaf q, k, v get
+    ``.grad``), and it is the plain version's: BERT's bucket, its maximum
+    length, ragged T and D."""
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(x).to(cuda, dt)
+                  for x in _qkv(*shape) + _qkv(*shape, seed=2)[:1])
+    _check_gradient_against_plain(q, k, v, g, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_gradient_reruns_bitwise_on_card(cuda, dtype):
+    """The backward's products and reductions run in a fixed order: the
+    same bits twice."""
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(x).to(cuda, dt)
+                  for x in _qkv(8, 12, 128, 64) + _qkv(8, 12, 128, 64,
+                                                       seed=2)[:1])
+    for causal in (False, True):
+        first = _check_gradient_against_plain(q, k, v, g, causal)
+        second = _check_gradient_against_plain(q, k, v, g, causal)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_gradient_reaches_bert_projection_on_card(cuda):
+    """Fault repaired: under ``autograd.record()`` the unmasked BERT layer
+    (the flash route) gives its QKV projection the gradient of the same
+    layer, same weights, on the CPU plain path."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.models.bert import MultiHeadAttention
+
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 128, 64)
+                         .astype("float32"))
+    card = MultiHeadAttention(64, 4, device=cuda)
+    card.initialize(generator=torch.Generator(device=cuda).manual_seed(0))
+    host = MultiHeadAttention(64, 4, device="cpu")
+    host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    launches = fa.flash_attention.launches
+    grads = []
+    for cell, dev in ((card, cuda), (host, torch.device("cpu"))):
+        with autograd.record():
+            out = cell(x.to(dev))
+        autograd.backward(out)
+        grads.append(cell.qkv.weight.grad.cpu())
+    assert fa.flash_attention.launches == launches + 1
+    assert grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=0,
+                               atol=1e-4 * grads[1].abs().max().item())

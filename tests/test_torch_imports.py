@@ -49,7 +49,8 @@ def test_port_imports_with_jax_blocked():
             "mxnet_tpu_torch.ops.bn_stats, mxnet_tpu_torch.autograd, "
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.gluon.loss, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.parameter, "
-            "mxnet_tpu_torch.ops.optimizer_ops\n"
+            "mxnet_tpu_torch.ops.optimizer_ops, "
+            "mxnet_tpu_torch.lr_scheduler\n"
             "assert not any(k.split('.')[0] in ('jax', 'mxnet_tpu') and "
             "sys.modules[k] is not None for k in sys.modules)\n"
             "print('ok')\n")
