@@ -30,7 +30,8 @@ Phases, in order; any failure exits non-zero:
    once as a user would (``double_k`` on (8, 128), ``axpy`` at 8x64x112x112,
    ResNet-50's largest activation), holds both bitwise against their plain
    torch expressions, and times ``axpy`` beside ``y + alpha * x``,
-   ``y.add_(x, alpha=alpha)`` and its memory bound;
+   ``y.add_(x, alpha=alpha)`` and its memory bound (``axpy``'s ``x`` is
+   passed as an ``mx.nd`` NDArray, as MXNet's ``launch`` takes them);
 6. resnet: ResNet-50 v1 (1000 classes, seeded random weights and BatchNorm
    statistics, carried onto the card through a ``.params`` file) behind
    ``ModelRuntime`` (buckets 1, 2, 4, 8) and ``Batcher``, answering 16
@@ -47,7 +48,8 @@ Phases, in order; any failure exits non-zero:
    ragged (3, 5, 7, 9) and a mean-1000 case (atol 2e-5 on a variance of
    0.25; 1e-4 at mean 1000, where fp32's own step is 6e-5), and per fp32
    geometry its time beside the plain version, ``torch.var_mean`` (a
-   yardstick the port never calls) and the card's bound;
+   yardstick the port never calls) and the card's bound, and its fp16
+   time beside fp16's bound;
 8. training parity: ResNet-50 v1 (phase 6's seeded weights and
    ``.params`` file) takes 2 SGD steps (lr 0.01, momentum 0.9, wd 1e-4,
    ``SoftmaxCrossEntropyLoss``) at batch 8 on the card and on the CPU
@@ -83,6 +85,28 @@ Phases, in order; any failure exits non-zero:
    12 kernel launches and 12 backward calls a step, no plain attention on
    the card; a ``[profile]`` of one step; then 5 steps of the dense route
    (an all-ones ``valid_mask``, the bench's input) for its step time.
+12. ``mx.nd``: every op of the table (``mxnet_tpu_torch/test_utils.py``'s
+   cases) on the card and on the CPU from the same seeded inputs, outputs
+   and gradients at the CPU tests' tolerances (fp32 rtol 1e-5, atol 1e-6;
+   fp16 and bf16 1e-2 relative; integer, index and shape outputs exact),
+   every result on the card; the samplers by moments (100k draws, 5
+   standard errors) and by stream (the same seed, the same bits); the ops
+   not run are named (there must be none); then
+   ``nd.contrib.flash_attention`` at (8, 12, 128, 64) fp32 (exactly one
+   kernel launch, within 1e-4 of the plain version) and training
+   ``nd.BatchNorm`` at (32, 64, 56, 56) fp32 (exactly one bn-stats launch,
+   output and moving statistics within 1e-4 of the CPU plain path);
+13. BERT-base pretraining through NDArrays: phase 11's configuration as
+   ``example/bert/pretrain.py`` writes it (``mx.nd.array(..., ctx=
+   mx.gpu(0))`` inputs, ``net.initialize(ctx=...)``, NDArray outputs,
+   ``loss.backward()``, ``trainer.step``, ``loss.wait_to_read()``,
+   ``loss.asscalar()``; no mask, so the flash route).  Its first 3 steps
+   from phase 11's weights: losses, every step's gradients and the final
+   parameters within the tensor path's difference from a second run of
+   itself plus 1e-6 of each tensor's max (those three runs with torch's
+   deterministic algorithms); then 3 warm and 10 timed steps
+   (step ms, sequences/s, peak memory beside phase 11's) at 12 flash
+   launches and 12 backward calls a step.
 
 Phase 3b follows phase 3: the flash route's gradient (``dQ``, ``dK``,
 ``dV``, the port's dense ``_attention_backward``) against the gradient of
@@ -102,9 +126,11 @@ line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -616,7 +642,8 @@ def phase_rtc(card):
     """mx.rtc: compile with NVRTC, run as a user would, hold bitwise, time.
     ``--fmad=false`` keeps NVRTC from fusing ``y + alpha * x`` into one FMA
     (one rounding where the plain expression rounds twice)."""
-    from mxnet_tpu_torch import rtc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, rtc
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     double = rtc.compile_cuda(DOUBLE_K, "double_k", ((8, 128), "float32"))
@@ -637,9 +664,10 @@ def phase_rtc(card):
     n = x.numel()
     grid, block = (n // 256,), (256,)
     y = y0.clone()
+    x_nd = nd.array(x, ctx=mx.gpu(0))    # MXNet's launch takes NDArrays
     rtc.CudaKernel.launches = 0                      # main path starts here
     doubled = double(x8)
-    axpy.launch([x, y, alpha], dev, grid, block)
+    axpy.launch([x_nd, y, alpha], dev, grid, block)
     torch.cuda.synchronize()
     launches = rtc.CudaKernel.launches               # main path ends here
     check(launches == 2, f"{launches} rtc launches (want 2)")
@@ -648,7 +676,8 @@ def phase_rtc(card):
     check(torch.equal(doubled, x8 * 2), "double_k differs from x * 2")
     check(torch.equal(y, y0 + alpha * x), "axpy differs from y + alpha * x")
     log(f"[rtc] double_k (8, 128) and axpy {AXPY_SHAPE} fp32 bitwise equal "
-        f"to x * 2 and y + alpha * x ({launches} launches)")
+        f"to x * 2 and y + alpha * x ({launches} launches; axpy's x passed "
+        f"as an mx.nd NDArray)")
 
     kernel_ms = device_ms(lambda: axpy.launch([x, y, alpha], dev, grid,
                                               block))
@@ -798,7 +827,7 @@ def phase_bn_kernel(bs, card):
               ((8, 16, 28, 28), torch.float32, 1000.0, 1.0),
               ((8, 16, 28, 28), torch.bfloat16, 1000.0, 1.0),
               ((8, 16, 28, 28), torch.float16, 1000.0, 1.0)]
-    times, path_err, fp16_err = {}, 0.0, 0.0
+    times, fp16_times, path_err, fp16_err = {}, {}, 0.0, 0.0
     for shape, dtype, mean, std in cases:
         x = (torch.randn(shape, generator=gen, device=dev) * std + mean) \
             .to(dtype)
@@ -818,6 +847,12 @@ def phase_bn_kernel(bs, card):
                 f"max_abs_err {err:.3e} (tol {tol:g})")
         if dtype == torch.float16:
             fp16_err = max(fp16_err, err)
+            if shape in RESNET50_BN:
+                k16 = device_ms(lambda: bs.bn_stats(x, pivot))
+                b16, by16 = bn_stats_bound_ms(shape, dtype)
+                fp16_times[shape] = (k16, b16, by16)
+                line += (f"; kernel {k16:.4f} ms, bound {b16:.4f} ms "
+                         f"({by16}), {b16 / k16:.2f} of the bound")
         if shape in RESNET50_BN and dtype == torch.float32:
             path_err = max(path_err, err)
             k = device_ms(lambda: bs.bn_stats(x, pivot))
@@ -833,7 +868,7 @@ def phase_bn_kernel(bs, card):
     log(f"[bn_stats] timed on {card}, inputs warm in L2 where they fit "
         f"(the real caller reads what the convolution just wrote); fp16 "
         f"max_abs_err {fp16_err:.3e}")
-    return times, path_err, fp16_err
+    return times, fp16_times, path_err, fp16_err
 
 
 @contextlib.contextmanager
@@ -1045,9 +1080,10 @@ def profile_train_step(step, step_ms, top=12):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def bn_record(times, counts, err, fp16_err, launches):
+def bn_record(times, fp16_times, counts, err, fp16_err, launches):
     """The bn-stats kernel's JSON record: times summed over the BatchNorm
-    inputs of one batch-32 forward."""
+    inputs of one batch-32 forward (fp32, and the kernel's fp16 time and
+    bound at the same inputs)."""
     check(set(counts) == set(times),
           f"BatchNorm geometries {sorted(counts)} differ from the timed "
           f"ones {sorted(times)}")
@@ -1055,16 +1091,20 @@ def bn_record(times, counts, err, fp16_err, launches):
              for i in range(4)]
     by = {times[s][4] for s in counts}
     check(len(by) == 1, f"bounds of mixed kinds {by}")
+    fp16 = [sum(fp16_times[s][i] * n for s, n in counts.items())
+            for i in range(2)]
     log(f"[bn_stats] one batch-{TRAIN_BATCH} forward ({sum(counts.values())}"
         f" launches): kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, "
-        f"var_mean {total[2]:.4f} ms, bound {total[3]:.4f} ms")
+        f"var_mean {total[2]:.4f} ms, bound {total[3]:.4f} ms; fp16 kernel "
+        f"{fp16[0]:.4f} ms, bound {fp16[1]:.4f} ms")
     return {"name": "bn_stats", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/bn_stats.cu",
             "replaces": "benchmark/pallas_bn_stats.py:91",
             "shape": f"the {sum(counts.values())} BatchNorm inputs of one "
                      f"batch-{TRAIN_BATCH} ResNet-50 v1 forward; ms summed",
             "dtype": "float32", "launches": launches, "max_abs_err": err,
-            "fp16_max_abs_err": fp16_err, "ms": total[0],
+            "fp16_max_abs_err": fp16_err, "fp16_ms": fp16[0],
+            "fp16_bound_ms": fp16[1], "ms": total[0],
             "kernel_ms": total[0], "plain_ms": total[1],
             "bound_ms": total[3],
             "bound_by": by.pop(),
@@ -1294,8 +1334,8 @@ def phase_pretrain_parity(fa):
 
 
 def phase_pretrain(fa, card):
-    """The slice's main path: BERT-base pretraining at full width and
-    depth, batch 32; returns (flash launches, backward calls)."""
+    """BERT-base pretraining at full width and depth, batch 32, on tensors;
+    returns (flash launches, backward calls, step ms, peak bytes)."""
     from mxnet_tpu_torch import gluon, telemetry
     net = _bert(PT_LAYERS, None)                     # the default: the GPU
     check(next(net.parameters()).is_cuda, "model did not land on cuda")
@@ -1372,7 +1412,7 @@ def phase_pretrain(fa, card):
         f"{dense_ms:.3f} ms each ({PT_BATCH * 1e3 / dense_ms:.2f} "
         f"sequences/s; one warm step first) against the flash route's "
         f"{step_ms:.3f} ms; on {card}")
-    return launches, calls
+    return launches, calls, step_ms, peak
 
 
 def profile_pretrain_step(fa, step, step_ms, top=12):
@@ -1431,6 +1471,329 @@ def profile_pretrain_step(fa, step, step_ms, top=12):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
+def _held(case, got, want, what):
+    """``test_utils.compare``, its failure a failed check."""
+    from mxnet_tpu_torch.test_utils import compare
+    try:
+        return compare(case, got, want, what)
+    except AssertionError as e:
+        check(False, f"[nd] {what} disagrees with the CPU: {e}")
+
+
+def _moments_ok(s, mean, var):
+    """Mean and variance within 5 standard errors (the variance's from the
+    sample's fourth moment)."""
+    s = s.astype(np.float64).reshape(-1)
+    m4 = ((s - s.mean()) ** 4).mean()
+    return (abs(s.mean() - mean) <= 5 * math.sqrt(var / s.size) and
+            abs(s.var() - var) <= 5 * math.sqrt(max(m4 - s.var() ** 2,
+                                                    1e-30) / s.size))
+
+
+def phase_nd(fa, bs, card):
+    """Phase 12: every op of the table on the card against the CPU (the
+    cases of ``mxnet_tpu_torch/test_utils.py``), the samplers by moments
+    and stream, then ``nd.contrib.flash_attention`` and training
+    ``nd.BatchNorm`` through the table, each adding exactly one launch of
+    its kernel; returns (flash launches, bn-stats launches) of those
+    calls."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.test_utils import (OP_CASES, RANDOM_CASES,
+                                            UPDATE_OPS, make_inputs,
+                                            run_case)
+    gpu = mx.gpu(0)
+    t0 = time.perf_counter()
+    ran, compared, worst = set(), 0, (0.0, "")
+    for case in OP_CASES:
+        got, ggot, where = run_case(mx.nd, mx.autograd, case, gpu)
+        want, gwant, _ = run_case(mx.nd, mx.autograd, case, mx.cpu())
+        check(all(c == gpu for c in where),
+              f"[nd] {case.name}: results on {where}, not all on the card")
+        err = _held(case, got, want, f"{case.name} {case.attrs} output")
+        if case.grad:
+            err = max(err, _held(case, ggot, gwant,
+                                 f"{case.name} {case.attrs} gradient"))
+        if not case.exact and case.dtype == "float32":
+            worst = max(worst, (err, case.name))
+        ran.add(case.name)
+        compared += 1
+    for case in UPDATE_OPS:
+        arrays = make_inputs(case)
+        results = []
+        for ctx in (gpu, mx.cpu()):
+            xs = [mx.nd.array(a, ctx=ctx) for a in arrays]
+            out = getattr(mx.nd, case.name)(*xs, out=xs[0], **case.attrs)
+            check(out is xs[0] and all(x.context == ctx for x in xs),
+                  f"[nd] {case.name} did not write its inputs in place")
+            results.append([x.asnumpy().astype(np.float64) for x in xs])
+        _held(case, *results, f"{case.name} written inputs")
+        ran.add(case.name)
+        compared += 1
+    n = 100_000
+    for name, inputs, attrs, mean, var in RANDOM_CASES:
+        def draw(seed):
+            mx.random.seed(seed)
+            xs = [mx.nd.array(a, ctx=gpu) for a in inputs]
+            return getattr(mx.nd, name)(*xs, ctx=gpu, shape=(n,), **attrs)
+        a = draw(7)
+        check(a.context == gpu, f"[nd] {name} drew on {a.context}")
+        check(np.array_equal(a.asnumpy(), draw(7).asnumpy()),
+              f"[nd] {name}: the same seed gave another stream")
+        check(_moments_ok(a.asnumpy(), mean, var),
+              f"[nd] {name}: moments off ({a.asnumpy().mean()}, "
+              f"{a.asnumpy().var()} against {mean}, {var})")
+        ran.add(name)
+    mx.random.seed(7)
+    perm = mx.nd.random.shuffle(mx.nd.arange(n, ctx=gpu))
+    mx.random.seed(7)
+    again = mx.nd.random.shuffle(mx.nd.arange(n, ctx=gpu))
+    check(perm.context == gpu and np.array_equal(
+        np.sort(perm.asnumpy()), np.arange(n)) and np.array_equal(
+        perm.asnumpy(), again.asnumpy()), "[nd] shuffle is no seeded "
+        "permutation on the card")
+    ran.add("_shuffle")
+    torch.cuda.synchronize()
+    not_run = sorted(set(registry.list_ops()) - ran)
+    log(f"[nd] {len(ran)} of {len(registry.list_ops())} ops of the table "
+        f"({len(registry.all_names())} names) ran on the card: {compared} "
+        f"cases held against the CPU at fp32 rtol 1e-5/atol 1e-6 (fp16, "
+        f"bf16 1e-2; integer, index and shape outputs exact), worst fp32 "
+        f"{worst[0]:.3e} ({worst[1]}); {len(RANDOM_CASES)} samplers by "
+        f"moments (n {n}, 5 standard errors) and seeded stream, shuffle as "
+        f"a seeded permutation; every result on the card; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[nd] not run: {not_run or 'none'}")
+    check(not not_run, f"[nd] ops of the table not run: {not_run}")
+
+    rng = np.random.RandomState(12)
+    q, k, v = (mx.nd.array(rng.randn(*SLICE_QKV), ctx=gpu) for _ in range(3))
+    with no_plain_attention_on_cuda(fa):
+        fa.flash_attention.launches = 0
+        out = mx.nd.contrib.flash_attention(q, k, v, causal=False)
+        out.wait_to_read()
+        flash = fa.flash_attention.launches
+    ref = fa._reference(q.data, k.data, v.data, False,
+                        1.0 / math.sqrt(SLICE_QKV[-1]))
+    err = (out.data - ref).abs().max().item()
+    check(flash == 1, f"[nd] contrib.flash_attention: {flash} launches")
+    check(out.context == gpu and math.isfinite(err) and err <= 1e-4,
+          f"[nd] contrib.flash_attention disagrees with the plain version: "
+          f"{err}")
+    shape = RESNET50_BN[1]
+    args = [rng.randn(*shape).astype("float32") * 0.5 + 0.2,
+            rng.uniform(0.5, 2, shape[1]), rng.randn(shape[1]),
+            np.zeros(shape[1]), np.ones(shape[1])]
+    results = []
+    for ctx in (gpu, mx.cpu()):
+        xs = [mx.nd.array(a, ctx=ctx) for a in args]
+        with no_plain_stats_on_cuda(bs):
+            bs.bn_stats.launches = 0
+            with mx.autograd.record():
+                y = mx.nd.BatchNorm(*xs, fix_gamma=False)
+            y.wait_to_read()
+            launched = bs.bn_stats.launches
+        results.append((launched, [t.asnumpy() for t in (y, xs[3], xs[4])]))
+    bn = results[0][0]
+    bn_err = max(float(np.abs(a - b).max())
+                 for a, b in zip(results[0][1], results[1][1]))
+    check(bn == 1, f"[nd] BatchNorm (training): {bn} bn-stats launches")
+    check(bn_err <= 1e-4, f"[nd] BatchNorm (training) disagrees with the "
+                          f"CPU plain path: {bn_err}")
+    a, b = (mx.nd.array(rng.randn(8, 8), ctx=gpu) for _ in range(2))
+    dispatch = {}
+    for what, fn in (("nd.elemwise_add", lambda: mx.nd.elemwise_add(a, b)),
+                     ("a + b (NDArray)", lambda: a + b),
+                     ("torch.add", lambda: torch.add(a.data, b.data))):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        dispatch[what] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    log("[nd] host dispatch per call on (8, 8) fp32, 2000 calls: " +
+        ", ".join(f"{k} {v:.2f} us" for k, v in dispatch.items()))
+    log(f"[nd] nd.contrib.flash_attention {SLICE_QKV} fp32: {flash} kernel "
+        f"launch, max_abs_err {err:.3e} against the plain version (tol "
+        f"1e-4); nd.BatchNorm (training) {shape} fp32: {bn} bn-stats "
+        f"launch, output and written-back moving statistics within "
+        f"{bn_err:.3e} of the CPU plain path (tol 1e-4)")
+    return flash, bn
+
+
+def _nd_pretrain_run(fa, steps, keep, timed=0):
+    """``example/bert/pretrain.py``'s loop through NDArrays at phase 11's
+    configuration: ``keep`` returns (losses, every step's gradients and the
+    final parameters, on the card); ``timed`` then times that many steps
+    more and returns (step ms, peak bytes, losses)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    ctx = mx.gpu(0)
+    net = _bert(PT_LAYERS, None)
+    net.initialize(ctx=ctx, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    rng = np.random.RandomState(6)
+    tok, seg, _, pos, mlm_y, nsp_y = synth_batch(rng, PT_BATCH, SEQ, VOCAB,
+                                                 MASKED)
+    tok, seg, pos = (mx.nd.array(a, dtype="int32", ctx=ctx)
+                     for a in (tok, seg, pos))
+    mlm_y, nsp_y = mx.nd.array(mlm_y, ctx=ctx), mx.nd.array(nsp_y, ctx=ctx)
+    params = net.collect_params()
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": PRETRAIN_LR})
+    grads = []
+
+    def step(on_grads=None):
+        with mx.autograd.record():
+            _, _, mlm, nsp = net(tok, seg, None, pos)
+            loss = sce(mlm.reshape((-1, VOCAB)),
+                       mlm_y.reshape((-1,))).mean() + sce(nsp, nsp_y).mean()
+        loss.backward()
+        if on_grads is not None:
+            on_grads()
+        trainer.step(PT_BATCH)
+        return loss
+
+    def grab():
+        grads.append({k: p.grad().clone() for k, p in params.items()
+                      if p.grad_req != "null"})
+
+    if not keep:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses = [step(grab if keep else None) for _ in range(steps)]
+    check(all(isinstance(l, mx.nd.NDArray) for l in losses),
+          "[nd_pretrain] the loss is not an NDArray")
+    losses[-1].wait_to_read()
+    losses = [float(l.asscalar()) for l in losses]
+    if keep:
+        return losses, grads, {k: p.data().detach().clone()
+                               for k, p in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        loss = step()
+    loss.wait_to_read()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    return step_ms, torch.cuda.max_memory_allocated(), \
+        losses + [float(loss.asscalar())]
+
+
+def _nd_pretrain_parity(fa, steps=3):
+    """Phase 13's first part: ``steps`` steps through NDArrays held to two
+    runs of phase 11's tensor path from the same weights."""
+    from mxnet_tpu_torch import gluon
+
+    def tensor_run():
+        net = _bert(PT_LAYERS, None)
+        net.initialize(generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        rng = np.random.RandomState(6)
+        arrays = synth_batch(rng, PT_BATCH, SEQ, VOCAB, MASKED)
+        tok, seg, _, pos, mlm_y, nsp_y = (torch.from_numpy(a).cuda()
+                                          for a in arrays)
+        params = net.collect_params()
+        trainer = gluon.Trainer(params, "adam",
+                                {"learning_rate": PRETRAIN_LR})
+        grads = []
+        step = _pretrain_step_fn(
+            net, (tok, seg, None, pos, mlm_y, nsp_y), trainer,
+            lambda: grads.append({k: p.grad().clone()
+                                  for k, p in params.items()
+                                  if p.grad_req != "null"}))
+        losses = [float(step()) for _ in range(steps)]
+        return losses, grads, {k: p.data().detach().clone()
+                               for k, p in params.items()}
+
+    # the token-type embedding's gradient (2 rows, 4096 ids) is summed in
+    # no fixed order by torch's default CUDA kernel, so two runs of the
+    # tensor path differ from step 1 (2e-7 on an H100); with torch's
+    # deterministic algorithms they agree bit for bit, and the NDArray path
+    # is held to that
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref, again = tensor_run(), tensor_run()
+        with no_plain_attention_on_cuda(fa):
+            nd_run = _nd_pretrain_run(fa, steps, keep=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    worst = (0.0, "")
+    for i in range(steps):
+        spread = abs(again[0][i] - ref[0][i])
+        d = abs(nd_run[0][i] - ref[0][i])
+        check(math.isfinite(nd_run[0][i]) and
+              d <= spread + 1e-6 * abs(ref[0][i]),
+              f"[nd_pretrain] loss of step {i + 1}: {nd_run[0][i]} against "
+              f"{ref[0][i]} (tensor path's own spread {spread})")
+    pairs = [(f"step-{i + 1} gradient", nd_run[1][i], ref[1][i],
+              again[1][i]) for i in range(steps)]
+    pairs.append(("parameter", nd_run[2], ref[2], again[2]))
+    for what, got, want, twin in pairs:
+        check(sorted(got) == sorted(want), f"[nd_pretrain] {what} names")
+        for k, r in want.items():
+            scale = r.abs().max().item()
+            d = (got[k] - r).abs().max().item()
+            spread = (twin[k] - r).abs().max().item()
+            check(math.isfinite(d) and d <= spread + 1e-6 * scale,
+                  f"[nd_pretrain] {what} {k}: {d} from the tensor path "
+                  f"(its own spread {spread}, 1e-6 of the max "
+                  f"{1e-6 * scale})")
+            worst = max(worst, (d / max(scale, 1e-30), f"{what} {k}"))
+    log(f"[nd_pretrain] bert_base through NDArrays, {steps} Adam steps "
+        f"from the weights of phase 11's tensor path: losses "
+        f"{[round(l, 6) for l in nd_run[0]]} against "
+        f"{[round(l, 6) for l in ref[0]]}; largest difference of a loss, "
+        f"gradient or parameter {worst[0]:.3e} of its tensor's max "
+        f"({worst[1] if worst[0] else 'none'}); the tensor path against "
+        f"itself {max(abs(a - b) for a, b in zip(again[0], ref[0])):.3e} "
+        f"(losses; torch's deterministic algorithms on for these runs)")
+
+
+def phase_nd_pretrain(fa, card, tensor_ms, tensor_peak):
+    """Phase 13: BERT-base pretraining at phase 11's configuration written
+    as ``example/bert/pretrain.py`` writes it, through NDArrays: held to
+    the tensor path (:func:`_nd_pretrain_parity`), then 3 warm and 10
+    timed steps; returns (flash launches, backward calls) over those 13."""
+    torch.cuda.empty_cache()
+    _nd_pretrain_parity(fa)
+    # a block's tensors and their gluon Parameters refer to each other, so
+    # the parity runs' models and Adam states go with the cyclic collector,
+    # not when the function returns
+    gc.collect()
+    torch.cuda.empty_cache()
+    with no_plain_attention_on_cuda(fa):
+        fa.flash_attention.launches = 0          # the main path starts
+        fa.flash_attention.backward_calls = 0
+        step_ms, peak, losses = _nd_pretrain_run(fa, PT_WARM, keep=False,
+                                                 timed=PT_TIMED)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches   # the main path ends
+        calls = fa.flash_attention.backward_calls
+    total = PT_WARM + PT_TIMED
+    check(launches == PT_LAYERS * total and calls == PT_LAYERS * total,
+          f"[nd_pretrain] {launches} flash launches and {calls} backward "
+          f"calls in {total} steps (want {PT_LAYERS} each a step)")
+    check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0],
+          f"[nd_pretrain] losses {losses}")
+    log(f"[nd_pretrain] bert_base batch {PT_BATCH} x T {SEQ} through "
+        f"NDArrays (pretrain.py's loop, no mask: the flash route): "
+        f"{PT_WARM} warm and {PT_TIMED} timed steps, {step_ms:.3f} ms a step "
+        f"({PT_BATCH * 1e3 / step_ms:.2f} sequences/s), peak device memory "
+        f"{peak / 2**30:.3f} GiB; phase 11's tensor path {tensor_ms:.3f} ms "
+        f"({PT_BATCH * 1e3 / tensor_ms:.2f} sequences/s), "
+        f"{tensor_peak / 2**30:.3f} GiB; {launches} flash launches and "
+        f"{calls} backward calls ({PT_LAYERS} each a step); on {card}")
+    return launches, calls
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -1449,14 +1812,18 @@ def main():
     rtc_record = phase_rtc(card)
     path = phase_resnet(card)
     bs = importlib.import_module("mxnet_tpu_torch.ops.bn_stats")
-    times, bn_err, bn_fp16_err = phase_bn_kernel(bs, card)
+    times, fp16_times, bn_err, bn_fp16_err = phase_bn_kernel(bs, card)
     phase_train_parity(bs, path)
     launches, counts = phase_train(bs, path, card)
-    bn = bn_record(times, counts, bn_err, bn_fp16_err, launches)
+    bn = bn_record(times, fp16_times, counts, bn_err, bn_fp16_err, launches)
     phase_pretrain_parity(fa)
     # the pretraining batch's counts beside the kernel's times at its shape
-    record["train"]["launches"], record["train"]["backward_calls"] = \
+    train = record["train"]
+    train["launches"], train["backward_calls"], step_ms, peak = \
         phase_pretrain(fa, card)
+    record["nd_launches"], bn["nd_launches"] = phase_nd(fa, bs, card)
+    train["nd_launches"], train["nd_backward_calls"] = \
+        phase_nd_pretrain(fa, card, step_ms, peak)
     print(json.dumps({"kernels": [record, rtc_record, bn]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@ the leaves of the heads' graph, takes their gradients with
 ``torch.autograd.grad`` and writes each into its buffer by its
 ``grad_req``; with no head gradients it uses ones, as MXNet does, so a
 per-sample loss vector needs no ``sum()``.
+
+NDArrays.  Every function here takes ``mx.nd`` NDArrays wherever it takes
+tensors (heads, head gradients, variables and their buffers) and works on
+the tensors they hold; ``grad`` returns NDArrays for NDArray variables.
 """
 from __future__ import annotations
 
@@ -117,11 +121,23 @@ def grad_req_of(tensor):
     return getattr(tensor, _REQ_ATTR, "write")
 
 
+def _is_array(x):
+    return isinstance(x, torch.Tensor) or isinstance(
+        getattr(x, "_data", None), torch.Tensor)
+
+
+def _tensor(x):
+    """The tensor an NDArray holds; a tensor (or ``None``) as it is."""
+    return x if x is None or isinstance(x, torch.Tensor) else x._data
+
+
 def mark_variables(variables, gradients, grad_reqs="write"):
     """Make each leaf tensor a variable whose gradient ``backward`` writes
     into the matching buffer (``mxnet_tpu/autograd.py:128``)."""
-    if isinstance(variables, torch.Tensor):
+    if _is_array(variables):
         variables, gradients = [variables], [gradients]
+    variables = [_tensor(v) for v in variables]
+    gradients = [_tensor(g) for g in gradients]
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     if not len(variables) == len(gradients) == len(grad_reqs):
@@ -133,7 +149,8 @@ def mark_variables(variables, gradients, grad_reqs="write"):
 
 
 def _as_list(x):
-    return [x] if isinstance(x, torch.Tensor) else list(x)
+    """Tensors of one array or of a list of them."""
+    return [_tensor(x)] if _is_array(x) else [_tensor(a) for a in x]
 
 
 def _head_grads(heads, head_grads):
@@ -205,7 +222,9 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     written to any buffer (``mxnet_tpu/autograd.py:351``).  A variable the
     heads do not reach gets zeros.  ``create_graph`` records the gradient
     computation, so that it can be differentiated again."""
-    single = isinstance(variables, torch.Tensor)
+    single = _is_array(variables)
+    wrap = not isinstance(variables if single else variables[0],
+                          torch.Tensor)
     variables = _as_list(variables)
     heads = _as_list(heads)
     for v in variables:
@@ -221,6 +240,9 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                     allow_unused=True)
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(variables, grads)]
+    if wrap:
+        from .ndarray import NDArray
+        grads = [NDArray(g) for g in grads]
     return grads[0] if single else grads
 
 

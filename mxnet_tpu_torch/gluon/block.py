@@ -19,6 +19,11 @@ is fixed by the first forward, on the input's device, or by
 parameter when it is materialised.  ``collect_params()`` gives each of them
 a Gluon ``Parameter`` (``parameter.py``) under the same names, for
 ``Trainer``.
+
+NDArrays.  A block called with any ``mx.nd`` NDArray among its arguments
+runs on their tensors and returns NDArrays; the unwrapping happens once, at
+the outermost call, so inner blocks see tensors.  ``Parameter.data()``
+still returns the tensor (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,8 +33,11 @@ import torch
 from torch import nn
 from torch.nn.parameter import UninitializedTensorMixin
 
-from .. import autograd, ndarray
+from .. import autograd
+from ..context import as_device
 from ..initializer import Uniform
+from ..ndarray import serialization
+from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
 
 __all__ = ["HybridBlock", "io_signature", "is_deferred"]
@@ -49,6 +57,18 @@ def is_deferred(t):
     return isinstance(t, UninitializedTensorMixin)
 
 
+def _unwrap(x):
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _wrap(x):
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_wrap(v) for v in x)
+    return x
+
+
 def _own_state(module):
     yield from module.named_parameters(recurse=False)
     yield from module.named_buffers(recurse=False)
@@ -65,6 +85,11 @@ class HybridBlock(nn.Module):
         self._deferred_init = None
 
     def __call__(self, *args, **kwargs):
+        if any(isinstance(a, NDArray) for a in args) or \
+                any(isinstance(v, NDArray) for v in kwargs.values()):
+            return _wrap(self.__call__(
+                *(_unwrap(a) for a in args),
+                **{k: _unwrap(v) for k, v in kwargs.items()}))
         # as in MXNet, only a forward inside autograd.record() builds a
         # graph; the check costs nothing below the outermost block
         if torch.is_grad_enabled() and not autograd.is_recording():
@@ -75,17 +100,27 @@ class HybridBlock(nn.Module):
     def hybridize(self, active=True, **kwargs):
         """Accepted for API parity; eager mode is the only mode."""
 
-    def initialize(self, init=None, generator=None):
+    def initialize(self, init=None, ctx=None, generator=None):
         """Fill every parameter and buffer with ``init`` (default
         :class:`Uniform`), dispatching on its name as MXNet does; a deferred
-        one is filled when it materialises."""
+        one is filled when it materialises.  ``ctx`` (a Context or device;
+        MXNet's list of one is taken too) moves them there first; a
+        ``generator`` must be on that device."""
         init = Uniform() if init is None else init
+        if isinstance(ctx, (list, tuple)):
+            if len(ctx) != 1:
+                raise ValueError("the port places a block on one device, "
+                                 f"got {ctx}")
+            ctx = ctx[0]
+        device = None if ctx is None else as_device(ctx)
         for module in self.modules():
             for name, t in _own_state(module):
                 if is_deferred(t):
                     module._deferred_init = (init, generator)
-                else:
-                    init(name, t.data, generator)
+                    continue
+                if device is not None:
+                    t.data = t.data.to(device)
+                init(name, t.data, generator)
 
     def _materialize(self, shapes, device):
         """Give each deferred ``{attribute: shape}`` its shape on
@@ -129,14 +164,15 @@ class HybridBlock(nn.Module):
             raise RuntimeError(
                 f"parameters {deferred[:4]} have no shape yet (deferred); run "
                 f"a forward or load_parameters before saving")
-        ndarray.save(filename, {k: v.detach() for k, v in params.items()})
+        serialization.save(filename,
+                           {k: v.detach() for k, v in params.items()})
 
     def load_parameters(self, filename):
         """Load a file written by ``save_parameters`` (this package's or the
         JAX package's; ``mxnet_tpu/gluon/block.py:276``).  Names must match
         exactly.  Each value lands on its parameter's device; a deferred
         parameter takes the file's shape there.  Dtypes must match."""
-        loaded = ndarray.load(filename)
+        loaded = serialization.load(filename)
         if not isinstance(loaded, dict):
             raise ValueError(f"{filename} holds unnamed arrays")
         params = self._collect_params_with_prefix()

@@ -19,7 +19,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..base import parse_bool, parse_float, parse_int, parse_tuple, \
+    torch_dtype
 from .bn_stats import batch_stats
+from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "update_moving_stats", "activation", "flatten", "layer_norm",
@@ -207,3 +210,119 @@ def activation(data, act_type="relu"):
 def flatten(data):
     """``(N, ...) -> (N, prod(...))``."""
     return data.reshape(data.shape[0], -1)
+
+
+# --------------------------------------------------------------- op table
+# The functions above under the JAX package's op names and attributes
+# (``mxnet_tpu/ops/nn.py``), for ``mx.nd``.  ``BatchNorm`` returns ``(out,
+# mean, var)``: the batch statistics in training (``__training__``, passed
+# by the frontend, and not ``use_global_stats``), which the frontend folds
+# into the moving ones in place, else the moving statistics themselves.
+def _bias(bias, no_bias):
+    return bias[0] if bias and not parse_bool(no_bias) else None
+
+
+@register("FullyConnected")
+def _fully_connected_op(data, weight, *bias, num_hidden=None, no_bias=False,
+                        flatten=True):
+    return fully_connected(data, weight, _bias(bias, no_bias),
+                           parse_bool(flatten, True))
+
+
+@register("Convolution")
+def _convolution_op(data, weight, *bias, kernel=None, stride=None,
+                    dilate=None, pad=None, num_filter=None, num_group=1,
+                    workspace=1024, no_bias=False, cudnn_tune=None,
+                    cudnn_off=False, layout=None):
+    nd = data.dim() - 2
+    return convolution(data, weight, _bias(bias, no_bias),
+                       parse_tuple(stride, nd), parse_tuple(pad, nd),
+                       parse_tuple(dilate, nd), parse_int(num_group, 1),
+                       layout)
+
+
+@register("Pooling")
+def _pooling_op(data, kernel=None, pool_type="max", global_pool=False,
+                cudnn_off=False, pooling_convention="valid", stride=None,
+                pad=None, p_value=2, count_include_pad=True, layout=None):
+    """``lp`` pools ``sum(|x|^p)^(1/p)``; the others are :func:`pooling`."""
+    kw = dict(global_pool=parse_bool(global_pool),
+              pooling_convention=str(pooling_convention),
+              stride=parse_tuple(stride, 2), pad=parse_tuple(pad, 2),
+              count_include_pad=parse_bool(count_include_pad, True),
+              layout=layout)
+    kernel = parse_tuple(kernel, 2)
+    if pool_type != "lp":
+        return pooling(data, kernel, pool_type, **kw)
+    p = parse_float(p_value, 2)
+    s = pooling(torch.abs(data) ** p, kernel, "sum", **kw)
+    return s ** (1.0 / p)
+
+
+@register("BatchNorm")
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False,
+                   min_calib_range=None, max_calib_range=None,
+                   __training__=False):
+    kw = dict(eps=parse_float(eps, 1e-3),
+              fix_gamma=parse_bool(fix_gamma, True), axis=parse_int(axis, 1))
+    if parse_bool(__training__) and not parse_bool(use_global_stats):
+        return batch_norm(data, gamma, beta, moving_mean, moving_var,
+                          training=True, **kw)
+    out = batch_norm(data, gamma, beta, moving_mean, moving_var, **kw)
+    return out, moving_mean, moving_var
+
+
+@register("LayerNorm")
+def _layer_norm_op(data, gamma, beta, axis=-1, eps=1e-5,
+                   output_mean_var=False):
+    ax, eps = parse_int(axis, -1), parse_float(eps, 1e-5)
+    out = layer_norm(data, gamma, beta, ax, eps)
+    if not parse_bool(output_mean_var):
+        return out
+    x = data.float()
+    return out, x.mean(dim=ax), x.var(dim=ax, unbiased=False)
+
+
+def _temper(data, temperature):
+    return data if temperature is None else data / parse_float(temperature)
+
+
+@register("softmax")
+def _softmax_op(data, *length, axis=-1, temperature=None, dtype=None,
+                use_length=False):
+    if parse_bool(use_length):
+        raise NotImplementedError("softmax(use_length=True) is not ported "
+                                  "(ROADMAP.md, queue 1)")
+    out = softmax(_temper(data, temperature), parse_int(axis, -1))
+    return out if dtype is None else out.to(torch_dtype(dtype))
+
+
+@register("log_softmax")
+def _log_softmax_op(data, axis=-1, temperature=None, dtype=None,
+                    use_length=False):
+    return torch.log_softmax(_temper(data, temperature), parse_int(axis, -1))
+
+
+@register("softmin")
+def _softmin_op(data, axis=-1, temperature=None, dtype=None,
+                use_length=False):
+    return torch.softmax(-data, parse_int(axis, -1))
+
+
+@register("Dropout")
+def _dropout_op(data, p=0.5, mode="training", axes=None, cudnn_off=False,
+                __training__=False, generator=None):
+    """Inverted dropout in training (or ``mode="always"``), with a mask
+    shared along ``axes``, drawn from ``generator``."""
+    p = parse_float(p, 0.5)
+    if not (parse_bool(__training__) or mode == "always") or p == 0.0:
+        return data.clone()
+    shape = list(data.shape)
+    for a in parse_tuple(axes) or ():
+        shape[a] = 1
+    keep = 1.0 - p
+    mask = torch.empty(shape, dtype=data.dtype, device=data.device) \
+        .bernoulli_(keep, generator=generator)
+    return data * mask / keep

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+from ..base import parse_float
+from .registry import register
+
 __all__ = ["sgd_update", "sgd_mom_update", "adam_update"]
 
 
@@ -53,3 +56,46 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
     mean.mul_(beta1).add_(g * (1 - beta1))
     var.mul_(beta2).add_((g * g).mul_(1 - beta2))
     weight.sub_(mean.mul(lr).div_(var.sqrt().add_(epsilon)))
+
+
+# --------------------------------------------------------------- op table
+# ``mx.nd.sgd_update`` & co. under the JAX package's names and attributes
+# (``mxnet_tpu/ops/optimizer_ops.py``).  Each writes the weight and its
+# states in place with the functions above, which is the write-back the
+# JAX package's frontend does by rebinding, and returns the weight.
+INPLACE_UPDATES = ("sgd_update", "sgd_mom_update", "adam_update")
+
+
+def _common(wd, rescale_grad, clip_gradient):
+    return dict(wd=parse_float(wd, 0.0),
+                rescale_grad=parse_float(rescale_grad, 1.0),
+                clip_gradient=parse_float(clip_gradient))
+
+
+@register("sgd_update")
+def _sgd_update_op(weight, grad, lr=None, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0, lazy_update=True):
+    sgd_update(weight, grad, parse_float(lr),
+               **_common(wd, rescale_grad, clip_gradient))
+    return weight
+
+
+@register("sgd_mom_update")
+def _sgd_mom_update_op(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0,
+                       lazy_update=True):
+    sgd_mom_update(weight, grad, mom, parse_float(lr),
+                   parse_float(momentum, 0.0),
+                   **_common(wd, rescale_grad, clip_gradient))
+    return weight
+
+
+@register("adam_update")
+def _adam_update_op(weight, grad, mean, var, lr=None, beta1=0.9, beta2=0.999,
+                    epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                    clip_gradient=-1.0, lazy_update=True):
+    adam_update(weight, grad, mean, var, parse_float(lr),
+                parse_float(beta1, 0.9), parse_float(beta2, 0.999),
+                parse_float(epsilon, 1e-8),
+                **_common(wd, rescale_grad, clip_gradient))
+    return weight

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .context import Context
+from .ndarray.ndarray import NDArray
 from .ops import _build
 
 __all__ = ["CudaModule", "CudaKernel", "compile_cuda", "parse_signature"]
@@ -409,9 +410,12 @@ class CudaKernel:
                block_dims=(1, 1, 1), shared_mem=0):
         """Launch on ``grid_dims`` blocks of ``block_dims`` threads with
         ``shared_mem`` bytes of dynamic shared memory, on torch's current
-        stream of the arguments' device.  ``ctx`` (``mx.gpu(i)`` or a torch
+        stream of the arguments' device.  A pointer argument is a tensor or
+        an ``mx.nd`` NDArray (its tensor), as MXNet's ``launch`` takes
+        NDArrays.  ``ctx`` (``mx.gpu(i)`` or a torch
         device) must agree with the tensors; the launch does not
         synchronise.  Raises with the driver's message if it is refused."""
+        args = [a._data if isinstance(a, NDArray) else a for a in args]
         values = self._pack(args)
         index = self._device(args, ctx)
         grid = _dims(grid_dims, "grid_dims")

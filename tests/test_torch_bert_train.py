@@ -8,6 +8,9 @@ masked positions, ``dropout=0.0``, MXNet's loop in both packages
 the weights; ``convert.bert_state_dict_from_gluon`` carries them across.
 Two routes: no mask (the flash route; JAX runs its Pallas kernel in
 interpret mode at T=128) and a padded ``valid_mask`` (the dense route).
+The flash route is also driven through ``mx.nd`` NDArrays, as
+``example/bert/pretrain.py`` writes it: bitwise the port's tensor path on
+the CPU, and within the tolerances below of the JAX package.
 
 Tolerances, fp32 throughout:
 - the losses of the 3 steps and every step-1 gradient within 1e-4 of the
@@ -32,6 +35,7 @@ import torch
 import mxnet_tpu as mx
 from mxnet_tpu.models import get_bert_model as jax_bert
 
+import mxnet_tpu_torch as mx_port
 from mxnet_tpu_torch import autograd as ag
 from mxnet_tpu_torch import gluon
 from mxnet_tpu_torch.convert import bert_state_dict_from_gluon
@@ -126,19 +130,22 @@ def _train_port(port, batch, steps, vocab=V):
                            for k, p in params.items()}
 
 
-@pytest.mark.parametrize("route", ["flash", "dense"])
-def test_pretraining_steps_match_jax(jax_net, route):
-    """Three Adam steps of MLM+NSP, both packages, same weights and batch
-    (tolerances in the module docstring)."""
-    jl, jg, jp = _train_jax(jax_net, route)
-    port = _port_model(jax_net)
-    before = fa.flash_attention.backward_calls
-    pl, pg, pp = _train_port(port, _batch(route), STEPS)
-    # the flash route's gradient is the port's own backward: one call per
-    # layer and step; the dense route never reaches it
-    assert fa.flash_attention.backward_calls - before == \
-        (2 * STEPS if route == "flash" else 0)
+@pytest.fixture(scope="module")
+def jax_runs(jax_net):
+    """The JAX package's 3 steps on each route, run once per module."""
+    runs = {}
 
+    def get(route):
+        if route not in runs:
+            runs[route] = _train_jax(jax_net, route)
+        return runs[route]
+    return get
+
+
+def _check_against_jax(jax_run, port_run):
+    """The tolerances of the module docstring."""
+    jl, jg, jp = jax_run
+    pl, pg, pp = port_run
     np.testing.assert_allclose(pl, jl, rtol=TOL, atol=0)
     assert pl[-1] < pl[0]
     assert sorted(pg[0]) == sorted(jg[0]) == sorted(pp)
@@ -170,6 +177,75 @@ def test_pretraining_steps_match_jax(jax_net, route):
             (k, (diff - scale - allow[k]).max())
         past += int((diff > scale).sum())
     assert past <= 16, past
+
+
+@pytest.mark.parametrize("route", ["flash", "dense"])
+def test_pretraining_steps_match_jax(jax_net, jax_runs, route):
+    """Three Adam steps of MLM+NSP, both packages, same weights and batch
+    (tolerances in the module docstring)."""
+    port = _port_model(jax_net)
+    before = fa.flash_attention.backward_calls
+    run = _train_port(port, _batch(route), STEPS)
+    # the flash route's gradient is the port's own backward: one call per
+    # layer and step; the dense route never reaches it
+    assert fa.flash_attention.backward_calls - before == \
+        (2 * STEPS if route == "flash" else 0)
+    _check_against_jax(jax_runs(route), run)
+
+
+def _train_port_nd(port, batch, steps):
+    """``_train_port`` written as ``example/bert/pretrain.py`` writes it:
+    NDArray inputs made with ``mx.nd.array(..., ctx=...)``, NDArray outputs
+    from the blocks, ``loss.backward()``, ``loss.wait_to_read()`` and
+    ``loss.asscalar()``."""
+    ctx = mx_port.cpu()
+    tok, seg, mask, pos, mlm_y, nsp_y = batch
+    tok, seg, pos = (mx_port.nd.array(a, dtype="int32", ctx=ctx)
+                     for a in (tok, seg, pos))
+    mask = None if mask is None else mx_port.nd.array(mask, ctx=ctx)
+    mlm_y, nsp_y = (mx_port.nd.array(a, ctx=ctx) for a in (mlm_y, nsp_y))
+    port.initialize(init=_keep, ctx=ctx)
+    params = port.collect_params()
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": LR})
+    losses, grads = [], []
+    for _ in range(steps):
+        with mx_port.autograd.record():
+            _, _, mlm, nsp = port(tok, seg, mask, pos)
+            loss = sce(mlm.reshape((-1, V)), mlm_y.reshape((-1,))).mean() + \
+                sce(nsp, nsp_y).mean()
+        assert isinstance(loss, mx_port.nd.NDArray)
+        loss.backward()
+        grads.append({k: p.grad().numpy().copy() for k, p in params.items()
+                      if p.grad_req != "null"})
+        trainer.step(tok.shape[0])
+        loss.wait_to_read()
+        losses.append(float(loss.asscalar()))
+    return losses, grads, {k: p.data().detach().numpy().copy()
+                           for k, p in params.items()}
+
+
+def _keep(name, tensor, generator=None):
+    """An initializer that leaves the loaded weights as they are."""
+
+
+def test_pretraining_through_ndarrays(jax_net, jax_runs):
+    """The flash route driven through NDArrays: bitwise the port's tensor
+    path on the CPU (the same torch operations; the NDArray layer adds a
+    copy of each reshaped view, which changes no value), and the JAX
+    package's steps within this module's tolerances."""
+    batch = _batch("flash")
+    before = fa.flash_attention.backward_calls
+    nd_run = _train_port_nd(_port_model(jax_net), batch, STEPS)
+    assert fa.flash_attention.backward_calls - before == 2 * STEPS
+    tensor_run = _train_port(_port_model(jax_net), batch, STEPS)
+    assert nd_run[0] == tensor_run[0]
+    for got, want in zip(nd_run[1] + [nd_run[2]],
+                         tensor_run[1] + [tensor_run[2]]):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    _check_against_jax(jax_runs("flash"), nd_run)
 
 
 def test_port_pretraining_converges():

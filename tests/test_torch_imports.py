@@ -1,6 +1,6 @@
 """The port stands alone: mxnet_tpu_torch and chip_smoke.py import neither
-JAX nor the JAX package, and the port's entry points never land on the CPU
-unless asked to."""
+JAX, the JAX package nor ``ml_dtypes`` (which the card's machine lacks), and
+the port's entry points never land on the CPU unless asked to."""
 import ast
 import subprocess
 import sys
@@ -9,13 +9,14 @@ from pathlib import Path
 import pytest
 import torch
 
+import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import context, rtc
 from mxnet_tpu_torch.gluon.model_zoo import get_model
 from mxnet_tpu_torch.models import get_bert_model
 from mxnet_tpu_torch.serving import ModelRuntime
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
 def _imported_roots(path):
@@ -40,7 +41,7 @@ def test_no_jax_import_in_port_sources():
 
 def test_port_imports_with_jax_blocked():
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'mxnet_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes'):\n"
             "    sys.modules[m] = None\n"
             "import mxnet_tpu_torch\n"
             "import mxnet_tpu_torch.ops.flash_attention, "
@@ -50,8 +51,10 @@ def test_port_imports_with_jax_blocked():
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.gluon.loss, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.parameter, "
             "mxnet_tpu_torch.ops.optimizer_ops, "
-            "mxnet_tpu_torch.lr_scheduler\n"
-            "assert not any(k.split('.')[0] in ('jax', 'mxnet_tpu') and "
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.test_utils\n"
+            "mxnet_tpu_torch.nd.array([1.0], ctx=mxnet_tpu_torch.cpu())\n"
+            "assert not any(k.split('.')[0] in ('jax', 'mxnet_tpu', "
+            "'ml_dtypes') and "
             "sys.modules[k] is not None for k in sys.modules)\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -86,6 +89,16 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
         rtc.CudaModule('extern "C" __global__ void k() {}')
     with pytest.raises(RuntimeError, match=missing):
         rtc.compile_cuda("", "double_k", ((8, 128), "float32"))
+
+    # mx.nd makes arrays on the current context: the GPU unless a scope or
+    # ctx= says otherwise
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.nd.array([1.0, 2.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.nd.zeros((2, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.nd.random.uniform(shape=(2,))
+    assert mx.nd.zeros((2,), ctx=mx.cpu()).context == mx.cpu()
 
 
 def test_contexts_name_torch_devices():

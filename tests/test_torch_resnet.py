@@ -301,16 +301,16 @@ def test_params_jax_writes_port_reads(tmp_path):
     got = nd.load(str(path))
     assert set(got) == set(arrays)
     for k, v in arrays.items():
-        assert got[k].numpy().dtype == jax_dtypes[k]
-        np.testing.assert_array_equal(got[k].numpy(),
-                                      v.astype(got[k].numpy().dtype))
-    assert got["scalar"].dim() == 0
+        assert got[k].asnumpy().dtype == jax_dtypes[k]
+        np.testing.assert_array_equal(got[k].asnumpy(),
+                                      v.astype(got[k].asnumpy().dtype))
+    assert got["scalar"].ndim == 0
     # every type flag, including float64/int64, round-trips in the port
     nd.save(str(path), {k: torch.from_numpy(v) for k, v in arrays.items()})
     back = nd.load_frombuffer(open(path, "rb").read())
     for k, v in arrays.items():
-        assert back[k].numpy().dtype == v.dtype
-        np.testing.assert_array_equal(back[k].numpy(), v)
+        assert back[k].asnumpy().dtype == v.dtype
+        np.testing.assert_array_equal(back[k].asnumpy(), v)
     with pytest.raises(ValueError, match="not an MXNet"):
         nd.load_frombuffer(b"\0" * 32)
     with pytest.raises(TypeError, match="type flag"):
@@ -332,9 +332,9 @@ def test_params_reader_takes_legacy_and_sparse_records():
     body += struct.pack("<IiI", 0xF993FAC9, 0, 0)
     buf = struct.pack("<QQQ", 0x112, 0, 3) + body + struct.pack("<Q", 0)
     a, b, c = nd.load_frombuffer(buf)
-    assert a.tolist() == [[0, 1], [2, 3]]
-    assert b.tolist() == [[0, 0], [0, 0], [5, 6]]
-    assert c.dim() == 0
+    assert a.asnumpy().tolist() == [[0, 1], [2, 3]]
+    assert b.asnumpy().tolist() == [[0, 0], [0, 0], [5, 6]]
+    assert c.ndim == 0
 
 
 # -------------------------------------------------------------- serving

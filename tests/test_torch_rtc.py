@@ -71,6 +71,22 @@ def test_launch_checks_arguments_before_the_driver():
             rtc._dims(bad, "block_dims")
 
 
+def test_launch_takes_ndarrays():
+    """NDArray arguments go through the same checks as tensors: their
+    tensor is what is packed and placed."""
+    k = _kernel("const float *x, float *y, float alpha")
+    x = mx.nd.ones((4,), ctx=mx.cpu())
+    y = mx.nd.zeros((4,), ctx=mx.cpu())
+    with pytest.raises(ValueError, match="CUDA device only"):
+        k.launch([x, y, 3.0], None, (1,), (4,))
+    with pytest.raises(TypeError, match="float pointer, got a torch.int32"):
+        k.launch([x, y.astype("int32"), 3.0], None, (1,), (4,))
+    with pytest.raises(ValueError, match="takes 3 arguments, got 2"):
+        k.launch([x, y], None, (1,), (4,))
+    values = k._pack([x.data, y.data, 3.0])
+    assert values[0].value == x.data.data_ptr()
+
+
 def test_scalar_arguments_pack_to_their_c_types():
     k = _kernel("__half h, int8_t c, uint8_t u, int64_t n, double d")
     values = k._pack([1.5, -3, 200, 2 ** 40 + 1, 0.1])
