@@ -108,6 +108,31 @@ Phases, in order; any failure exits non-zero:
    (step ms, sequences/s, peak memory beside phase 11's) at 12 flash
    launches and 12 backward calls a step.
 
+14. the symbolic path (``mx.sym``, the Executor, the local KVStore,
+   ``Module``): ResNet-50 v1 at full width written with ``mx.sym`` calls
+   (:func:`resnet_v1_symbol`), batch 8, numpy-seeded weights carried to
+   the card and to the CPU with ``Module.set_params``; 2 SGD steps
+   (``forward_backward`` + ``update``, kvstore ``'local'``, phase 8's
+   optimizer) on each, held to phase 8's criterion (losses, step-1
+   gradients, parameters and auxiliary states within 1e-4 of each
+   tensor's max or twice the CPU run's own spread under a reordering of
+   the batch); 53 bn-stats launches per forward and no plain statistics
+   on the card; the graph's ``tojson``/``load_json`` round trip gives the
+   same outputs on the card bit for bit;
+15. ``Module.fit`` at full width, batch 32, over an ``NDArrayIter`` of 13
+   seeded batches (``Xavier`` initialisation, SGD, ``eval_metric=["acc",
+   "ce"]``, a ``Speedometer``, kvstore ``'local'``): the step ms of the
+   10 steps after 3 warm ones, images/s and peak device memory beside
+   phase 9's gluon step, 689 bn-stats launches (53 a step), and a
+   ``[profile]`` of one step (idle share, top kernels, host ms of the
+   Executor's walk, backward, the kvstore update and the metric).  This
+   is the Module path's main run: the bn-stats record's
+   ``module_launches`` counts it.
+
+Phase 13 reads its peak without a manual ``gc.collect()``: a gluon
+Parameter holds its block's tensor weakly, so the parity runs' models are
+freed when they return, and the peak must not exceed phase 11's.
+
 Phase 3b follows phase 3: the flash route's gradient (``dQ``, ``dK``,
 ``dV``, the port's dense ``_attention_backward``) against the gradient of
 the plain version at (8, 12, 128, 64) and (8, 12, 512, 64), fp32 and bf16,
@@ -129,6 +154,7 @@ import contextlib
 import gc
 import importlib
 import json
+import logging
 import math
 import os
 import subprocess
@@ -703,6 +729,57 @@ def phase_rtc(card):
             "library_ms": library_ms}
 
 
+def resnet_v1_symbol(sym, units, filters, classes, bottleneck=True):
+    """ResNet v1 written with ``mx.sym`` calls, as a user's script writes
+    it, in the model zoo's layout (``mxnet_tpu/gluon/model_zoo/vision/
+    resnet.py``: a 7x7/2 stem, max pool, stages of bottleneck or basic
+    units striding on their first convolution, a projection shortcut where
+    the width changes, global average pool, a dense classifier) with a
+    ``SoftmaxOutput`` head.  ``sym`` is the namespace (``mx.sym`` of either
+    package), so one text builds the graph in both; every node with
+    parameters is named, so parameter names do not depend on the process's
+    auto-name counters.  ResNet-50 v1: ``units=[3, 4, 6, 3]``,
+    ``filters=[64, 256, 512, 1024, 2048]``: 53 BatchNorms."""
+    def conv(x, name, channels, kernel, stride, pad):
+        return sym.Convolution(x, num_filter=channels, kernel=(kernel, kernel),
+                               stride=(stride, stride), pad=(pad, pad),
+                               no_bias=True, name=name)
+
+    def bn(x, name):
+        return sym.BatchNorm(x, fix_gamma=False, eps=1e-5, momentum=0.9,
+                             name=name)
+
+    def relu(x, name):
+        return sym.Activation(x, act_type="relu", name=name)
+
+    x = sym.Variable("data")
+    x = relu(bn(conv(x, "conv0", filters[0], 7, 2, 3), "bn0"), "relu0")
+    x = sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                    pool_type="max", name="pool0")
+    for i, n in enumerate(units):
+        for j in range(n):
+            name, c = f"stage{i + 1}_unit{j + 1}", filters[i + 1]
+            stride = 2 if i > 0 and j == 0 else 1
+            if bottleneck:
+                y = relu(bn(conv(x, name + "_conv1", c // 4, 1, stride, 0),
+                            name + "_bn1"), name + "_relu1")
+                y = relu(bn(conv(y, name + "_conv2", c // 4, 3, 1, 1),
+                            name + "_bn2"), name + "_relu2")
+                y = bn(conv(y, name + "_conv3", c, 1, 1, 0), name + "_bn3")
+            else:
+                y = relu(bn(conv(x, name + "_conv1", c, 3, stride, 1),
+                            name + "_bn1"), name + "_relu1")
+                y = bn(conv(y, name + "_conv2", c, 3, 1, 1), name + "_bn2")
+            if j == 0 and c != filters[i]:
+                x = bn(conv(x, name + "_sc", c, 1, stride, 0), name + "_sc_bn")
+            x = relu(x + y, name + "_relu")
+    x = sym.Pooling(x, global_pool=True, pool_type="avg", kernel=(1, 1),
+                    name="pool1")
+    x = sym.FullyConnected(sym.Flatten(x, name="flatten0"), num_hidden=classes,
+                           name="fc1")
+    return sym.SoftmaxOutput(x, name="softmax")
+
+
 def _seeded(name, shape, rng):
     """Seeded values by parameter name: BatchNorm statistics with variance
     > 0, He-scaled weights; gammas under one keep 16 residual blocks from
@@ -979,7 +1056,8 @@ def phase_train_parity(bs, path):
 
 def phase_train(bs, path, card):
     """The main path at full width: batch 32, 3 warm and 10 timed steps;
-    returns (launches, {BatchNorm input shape: count per forward})."""
+    returns (launches, {BatchNorm input shape: count per forward}, step
+    ms, peak bytes)."""
     from mxnet_tpu_torch import autograd, gluon, telemetry
     from mxnet_tpu_torch.gluon.model_zoo import get_model
     from mxnet_tpu_torch.gluon.nn import BatchNorm
@@ -1013,6 +1091,9 @@ def phase_train(bs, path, card):
         bs.bn_stats.launches = 0                 # the main path starts
         t0 = time.perf_counter()
         losses = [step() for _ in range(WARM_STEPS)]
+        # a full collection of what the earlier phases left (~300k tracked
+        # objects, ~150 ms of host time) runs here, not in a timed step
+        gc.collect()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for h in hooks:
@@ -1049,7 +1130,7 @@ def phase_train(bs, path, card):
     counts = {}
     for shape in bn_shapes[:BN_PER_FORWARD]:
         counts[shape] = counts.get(shape, 0) + 1
-    return launches, counts
+    return launches, counts, step_ms, peak
 
 
 def profile_train_step(step, step_ms, top=12):
@@ -1764,10 +1845,9 @@ def phase_nd_pretrain(fa, card, tensor_ms, tensor_peak):
     timed steps; returns (flash launches, backward calls) over those 13."""
     torch.cuda.empty_cache()
     _nd_pretrain_parity(fa)
-    # a block's tensors and their gluon Parameters refer to each other, so
-    # the parity runs' models and Adam states go with the cyclic collector,
-    # not when the function returns
-    gc.collect()
+    # the parity runs' models and Adam states are freed when the function
+    # returns: a gluon Parameter holds its block's tensor weakly
+    left = torch.cuda.memory_allocated()
     torch.cuda.empty_cache()
     with no_plain_attention_on_cuda(fa):
         fa.flash_attention.launches = 0          # the main path starts
@@ -1790,8 +1870,270 @@ def phase_nd_pretrain(fa, card, tensor_ms, tensor_peak):
         f"{peak / 2**30:.3f} GiB; phase 11's tensor path {tensor_ms:.3f} ms "
         f"({PT_BATCH * 1e3 / tensor_ms:.2f} sequences/s), "
         f"{tensor_peak / 2**30:.3f} GiB; {launches} flash launches and "
-        f"{calls} backward calls ({PT_LAYERS} each a step); on {card}")
+        f"{calls} backward calls ({PT_LAYERS} each a step); "
+        f"{left / 2**30:.3f} GiB still allocated after the parity runs, "
+        f"no manual collection; on {card}")
+    # the NDArray loop's one extra buffer: reshape's copy of the masked-LM
+    # logits (values, not views)
+    extra = PT_BATCH * MASKED * VOCAB * 4
+    check(peak <= tensor_peak + extra,
+          f"[nd_pretrain] peak {peak / 2**30:.3f} GiB above phase 11's "
+          f"{tensor_peak / 2**30:.3f} GiB plus the logits' copy "
+          f"{extra / 2**30:.3f} GiB")
     return launches, calls
+
+
+MODULE_UNITS, MODULE_FILTERS = [3, 4, 6, 3], [64, 256, 512, 1024, 2048]
+
+
+def _module(ctx, sym, batch, params=None, initializer=None):
+    """A bound ``Module`` on ``ctx`` with ``params`` (numpy, by name) or an
+    initializer, and phase 8's SGD through kvstore ``'local'``."""
+    import mxnet_tpu_torch as mx
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch,) + IMAGE)],
+             label_shapes=[("softmax_label", (batch,))])
+    if params is not None:
+        mod.set_params(*params)
+    else:
+        mod.init_params(initializer)
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=dict(TRAIN_OPT))
+    return mod
+
+
+def _module_steps(mod, ctx, x, y, steps):
+    """``steps`` of ``forward_backward`` + ``update``; (per-sample losses
+    of each step, the step-1 gradients, final parameters and auxiliary
+    states), on the host.  The loss is the cross entropy of the
+    ``SoftmaxOutput`` probabilities."""
+    import mxnet_tpu_torch as mx
+    losses, grads = [], None
+    for step in range(steps):
+        batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                [mx.nd.array(y, ctx=ctx)])
+        mod.forward_backward(batch)
+        prob = mod.get_outputs()[0].asnumpy()
+        losses.append(-np.log(prob[np.arange(len(y)), y.astype(int)]))
+        if step == 0:
+            grads = {k: v.asnumpy().copy()
+                     for k, v in mod._exec.grad_dict.items()}
+        mod.update()
+    arg, aux = mod.get_params()
+    return losses, grads, {k: v.asnumpy() for k, v in {**arg, **aux}.items()}
+
+
+def phase_module_parity(bs):
+    """Phase 14: the symbolic ResNet-50 v1 through ``Module`` at batch 8,
+    2 SGD steps on the card against the CPU plain path (phase 8's
+    criterion), 53 bn-stats launches per forward, and the graph's JSON
+    round trip bit for bit on the card."""
+    import mxnet_tpu_torch as mx
+    sym = resnet_v1_symbol(mx.sym, MODULE_UNITS, MODULE_FILTERS, 1000)
+    rng = np.random.RandomState(7)
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=(PARITY_BATCH,) + IMAGE)
+    args = {n: _seeded(n, s, rng).astype("float32")
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    auxs = {n: _seeded(n.replace("moving_", "running_"), s, rng)
+            .astype("float32")
+            for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    x = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
+    y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
+    perm = np.roll(np.arange(PARITY_BATCH), 3)
+
+    def cpu_run(order):
+        mod = _module(mx.cpu(), sym, PARITY_BATCH, (args, auxs))
+        run = _module_steps(mod, mx.cpu(), x[order], y[order], PARITY_STEPS)
+        return [l[np.argsort(order)] for l in run[0]], run[1], run[2]
+
+    t0 = time.perf_counter()
+    ref = cpu_run(np.arange(PARITY_BATCH))
+    again = cpu_run(perm)
+    cpu_s = time.perf_counter() - t0
+    card_ctx = mx.gpu(0)
+    with no_plain_stats_on_cuda(bs):
+        mod = _module(card_ctx, sym, PARITY_BATCH, (args, auxs))
+        bs.bn_stats.launches = 0                 # the parity path starts
+        card = _module_steps(mod, card_ctx, x, y, PARITY_STEPS)
+        torch.cuda.synchronize()
+        launches = bs.bn_stats.launches          # the parity path ends
+    check(launches == BN_PER_FORWARD * PARITY_STEPS,
+          f"[module] {launches} bn-stats launches for {PARITY_STEPS} "
+          f"training forwards (want {BN_PER_FORWARD} each)")
+    log(f"[module] parity: symbolic resnet50_v1 ({len(sym._topo())} nodes, "
+        f"{len(args)} parameters, {len(auxs)} auxiliary states), 2 CPU "
+        f"plain runs of {PARITY_STEPS} Module steps at batch {PARITY_BATCH} "
+        f"in {cpu_s:.1f} s; card: {launches} bn-stats launches "
+        f"({BN_PER_FORWARD} per forward), none of the plain version")
+    quantities = [(f"loss of step {i + 1}", lambda r, i=i: {"l": r[0][i]})
+                  for i in range(PARITY_STEPS)]
+    quantities += [("step-1 gradients", lambda r: r[1]),
+                   (f"parameters and auxiliary states after step "
+                    f"{PARITY_STEPS}", lambda r: r[2])]
+    for what, pick in quantities:
+        spread, spread_at = _rel(pick(again), pick(ref))
+        tol = max(1e-4, 2 * spread)
+        err, err_at = _rel(pick(card), pick(ref))
+        log(f"[module] {what}: card vs CPU {err:.3e} of the tensor's max "
+            f"(worst {err_at}), CPU vs CPU reordered {spread:.3e} (worst "
+            f"{spread_at}), tol {tol:.3e}")
+        check(all(np.isfinite(v).all() for v in pick(card).values()),
+              f"[module] non-finite {what}")
+        check(err <= tol, f"[module] card training disagrees with the CPU "
+                          f"plain run: {what}")
+    log(f"[module] losses, card: {[float(l.mean()) for l in card[0]]}, "
+        f"CPU: {[float(l.mean()) for l in ref[0]]}")
+
+    # the graph's JSON, loaded back, gives the same outputs bit for bit
+    again_sym = mx.sym.load_json(sym.tojson())
+    check(again_sym.tojson() == sym.tojson(), "[module] JSON round trip "
+                                              "changed the graph")
+    arg_p, aux_p = mod.get_params()
+    feed = {"data": mx.nd.array(x, ctx=card_ctx),
+            "softmax_label": mx.nd.array(y, ctx=card_ctx)}
+    outs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for s in (sym, again_sym):
+            ex = s.bind(card_ctx, args={**arg_p, **feed},
+                        aux_states={k: v.copy() for k, v in aux_p.items()},
+                        grad_req="null")
+            outs.append(ex.forward(is_train=True)[0].asnumpy())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(np.array_equal(outs[0], outs[1]),
+          "[module] the JSON-loaded graph's outputs differ")
+    log(f"[module] tojson -> load_json: the same graph, training-mode "
+        f"outputs on the card equal bit for bit ({outs[0].shape})")
+
+
+def phase_module(bs, card, gluon_ms, gluon_peak):
+    """Phase 15: ``Module.fit`` on the symbolic ResNet-50 v1 at batch 32
+    over 13 seeded batches (3 warm, 10 timed), then a ``[profile]`` of
+    one step; returns the bn-stats launches of the fit."""
+    import mxnet_tpu_torch as mx
+    sym = resnet_v1_symbol(mx.sym, MODULE_UNITS, MODULE_FILTERS, 1000)
+    steps = WARM_STEPS + TIMED_STEPS
+    rng = np.random.RandomState(8)
+    x = rng.randn(steps * TRAIN_BATCH, *IMAGE).astype("float32")
+    y = rng.randint(0, 1000, steps * TRAIN_BATCH).astype("float32")
+    ctx = mx.gpu(0)
+    mx.random.seed(8)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = {}
+
+    def clock(param):
+        if param.nbatch in (WARM_STEPS - 1, steps - 1):
+            if param.nbatch == WARM_STEPS - 1:
+                gc.collect()               # as in phase 9: not in a timed step
+            torch.cuda.synchronize()
+            marks[param.nbatch] = time.perf_counter()
+
+    mod = mx.mod.Module(sym, context=ctx)
+    metric = mx.metric.create(["acc", "ce"])
+    # fit's own log (the Speedometer's lines, the epoch's metric) to stdout
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[module] fit: %(message)s"))
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        with no_plain_stats_on_cuda(bs):
+            bs.bn_stats.launches = 0             # the Module path starts
+            mod.fit(mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH),
+                    num_epoch=1, eval_metric=metric, kvstore="local",
+                    initializer=mx.init.Xavier(rnd_type="gaussian",
+                                               factor_type="in",
+                                               magnitude=2),
+                    optimizer="sgd", optimizer_params=dict(TRAIN_OPT),
+                    batch_end_callback=[
+                        mx.callback.Speedometer(TRAIN_BATCH, 5), clock])
+            torch.cuda.synchronize()
+            launches = bs.bn_stats.launches      # the Module path ends
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = (marks[steps - 1] - marks[WARM_STEPS - 1]) * 1e3 / TIMED_STEPS
+    names, values = metric.get_global()
+    check(launches == BN_PER_FORWARD * steps,
+          f"[module] {launches} bn-stats launches in {steps} fit steps "
+          f"(want {BN_PER_FORWARD} each)")
+    check(all(math.isfinite(v) for v in values), f"[module] {values}")
+    check(all(p.context == ctx and np.isfinite(p.asnumpy()).all()
+              for p in mod.get_params()[0].values()),
+          "[module] parameters off the card or not finite")
+    log(f"[module] Module.fit symbolic resnet50_v1 batch {TRAIN_BATCH} fp32 "
+        f"(TF32 off, kvstore local, NDArrayIter, acc+ce metric, "
+        f"Speedometer): {TIMED_STEPS} timed steps after {WARM_STEPS} warm, "
+        f"{step_ms:.3f} ms each, {TRAIN_BATCH * 1e3 / step_ms:.2f} images/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB; phase 9's gluon step "
+        f"{gluon_ms:.3f} ms ({TRAIN_BATCH * 1e3 / gluon_ms:.2f} images/s), "
+        f"{gluon_peak / 2**30:.3f} GiB; {launches} bn-stats launches "
+        f"({BN_PER_FORWARD} per step); train metric "
+        f"{dict(zip(names, values))}; on {card}")
+    profile_module_step(mod, ctx, x[:TRAIN_BATCH], y[:TRAIN_BATCH], step_ms)
+    return launches
+
+
+def profile_module_step(mod, ctx, x, y, step_ms, top=12):
+    """One ``Module`` step in the parts ``fit`` runs, host ms of each
+    (the executor's walk, backward, the kvstore update, the metric, whose
+    ``asnumpy`` waits for the device), then device time by kernel over a
+    second step (torch.profiler)."""
+    import mxnet_tpu_torch as mx
+    from torch.autograd import DeviceType
+    metric = mx.metric.create(["acc", "ce"])
+    batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                            [mx.nd.array(y, ctx=ctx)])
+
+    def step():
+        t = [time.perf_counter()]
+        mod.forward(batch, is_train=True)
+        t.append(time.perf_counter())
+        mod.backward()
+        t.append(time.perf_counter())
+        mod.update()
+        t.append(time.perf_counter())
+        mod.update_metric(metric, batch.label)
+        t.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+    step()
+    torch.cuda.synchronize()
+    host = step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    parts = ", ".join(f"{n} {v:.3f} ms" for n, v in zip(
+        ("forward (executor walk)", "backward", "update (kvstore push and "
+         "pull)", "metric (waits for the device)"), host))
+    if not busy_ms:
+        log(f"[profile] module step: host {parts}; device time not "
+            f"measured (no CUDA events in the trace)")
+        return
+    bn_ms = sum(e.self_device_time_total for e in kernels
+                if "bn_stats" in e.key) / 1e3
+    log(f"[profile] module step batch {TRAIN_BATCH}: {step_ms:.3f} ms wall "
+        f"(mean of {TIMED_STEPS} fit steps), device busy {busy_ms:.3f} ms, "
+        f"idle share {1 - busy_ms / step_ms:.3f}, {len(kernels)} kernels, "
+        f"{sum(e.count for e in kernels)} launches; bn-stats kernels "
+        f"{bn_ms:.3f} ms; host: {parts}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
 
 
 def main():
@@ -1814,7 +2156,7 @@ def main():
     bs = importlib.import_module("mxnet_tpu_torch.ops.bn_stats")
     times, fp16_times, bn_err, bn_fp16_err = phase_bn_kernel(bs, card)
     phase_train_parity(bs, path)
-    launches, counts = phase_train(bs, path, card)
+    launches, counts, train_ms, train_peak = phase_train(bs, path, card)
     bn = bn_record(times, fp16_times, counts, bn_err, bn_fp16_err, launches)
     phase_pretrain_parity(fa)
     # the pretraining batch's counts beside the kernel's times at its shape
@@ -1824,6 +2166,8 @@ def main():
     record["nd_launches"], bn["nd_launches"] = phase_nd(fa, bs, card)
     train["nd_launches"], train["nd_backward_calls"] = \
         phase_nd_pretrain(fa, card, step_ms, peak)
+    phase_module_parity(bs)
+    bn["module_launches"] = phase_module(bs, card, train_ms, train_peak)
     print(json.dumps({"kernels": [record, rtc_record, bn]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

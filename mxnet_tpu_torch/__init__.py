@@ -6,7 +6,10 @@ use), and ``mx.rtc`` compiles user CUDA source with NVRTC.  ``mx.nd`` is
 MXNet's NDArray on torch tensors, with one function per name in the op
 table (``ops/``).  Training runs through ``mx.autograd`` (on
 ``torch.autograd``), ``gluon.loss``, ``gluon.Trainer``, ``mx.optimizer``
-(SGD, Adam) and ``mx.lr_scheduler``.  The package imports neither JAX nor
+(SGD, Adam) and ``mx.lr_scheduler``.  The symbolic path is ``mx.sym``
+(graphs over the same op table), the ``Executor``, ``mx.kv`` (the local
+store), ``mx.io``, ``mx.metric``, ``mx.init``, ``mx.callback``,
+``mx.model`` and ``mx.mod.Module``.  The package imports neither JAX nor
 ``mxnet_tpu``.  Entry points run on the GPU unless the caller asks for the
 CPU (``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``).
 """
@@ -14,7 +17,13 @@ from . import autograd, base, context, convert, gluon, initializer  # noqa
 from . import lr_scheduler, models, ndarray, ops, optimizer  # noqa: F401
 from . import random, rtc, serving  # noqa: F401
 from . import telemetry  # noqa: F401
+from . import callback, executor, io, kvstore, metric, model  # noqa: F401
+from . import module, symbol  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from . import module as mod  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from . import symbol as sym  # noqa: F401
 from .context import (Context, cpu, current_context, gpu,  # noqa: F401
                       num_gpus)
 

@@ -5,6 +5,14 @@ same structure (the ResNets, for one): the JAX block's ``save_parameters``
 writes an MXNet ``.params`` file and the port's ``load_parameters`` reads it
 by structural name, so nothing but the file crosses over.
 
+``module_params`` carries a Module's weights: its ``get_params()`` (the
+JAX package's or the port's) as ``{name: numpy array}`` dicts, which the
+other package's ``Module.set_params`` takes by name; symbolic parameter
+names are the graph's own, identical in both packages, so nothing is
+renamed.  Checkpoint files (``model.save_checkpoint``,
+``Module.save_checkpoint``) are MXNet's format in both packages and load
+in either with ``model.load_checkpoint`` or ``Module.load``.
+
 ``bert_state_dict_from_gluon`` takes a JAX ``BERTModel``'s
 ``collect_params()`` as numpy arrays (``{name: p.data().asnumpy()}``), strips
 the net's own ``prefix`` (``bertmodel0_``; its counter depends on how many
@@ -19,7 +27,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["load_from_gluon", "bert_state_dict_from_gluon"]
+__all__ = ["load_from_gluon", "module_params", "bert_state_dict_from_gluon"]
 
 
 def load_from_gluon(gluon_block, port_block, filename):
@@ -29,6 +37,13 @@ def load_from_gluon(gluon_block, port_block, filename):
     gluon_block.save_parameters(str(filename))
     port_block.load_parameters(str(filename))
     return port_block
+
+def module_params(module):
+    """``(arg_params, aux_params)`` of a bound, initialised Module of either
+    package, as ``{name: numpy array}`` on the host."""
+    arg_params, aux_params = module.get_params()
+    return ({k: np.asarray(v.asnumpy()) for k, v in arg_params.items()},
+            {k: np.asarray(v.asnumpy()) for k, v in aux_params.items()})
 
 # Gluon name (prefix stripped) -> port state-dict key.  The norms are
 # positional inside their scope: the model's first LayerNorm is the

@@ -8,8 +8,17 @@ A ``Parameter`` is a named tensor with the settings a ``Trainer`` reads:
 and kept on the tensor, so that settings made through one
 ``collect_params()`` hold in the next.  The gradient buffer is the tensor's
 ``.grad`` (``autograd.py``); it reads zeros until a ``backward`` writes it.
+
+The tensor holds its ``Parameter`` and the ``Parameter`` holds a block's
+tensor weakly, so the two make no reference cycle: dropping a block (and
+its Trainer and optimizer states) frees its memory at once, without the
+cyclic collector.  A ``Parameter`` whose block is gone raises on use.  A
+standalone ``Parameter`` owns the tensor :meth:`Parameter.initialize`
+makes.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -37,7 +46,8 @@ class Parameter:
         self.init = init
         self._shape = (shape,) if isinstance(shape, int) else shape
         self._dtype = dtype
-        self._data = None
+        self._owned = None           # the tensor of a standalone Parameter
+        self._ref = None             # a weak reference to a block's tensor
         autograd._check_grad_req(grad_req)
         self._grad_req = grad_req
 
@@ -50,9 +60,22 @@ class Parameter:
         if param is None:
             param = cls(name, autograd.grad_req_of(tensor),
                         dtype=tensor.dtype)
-            param._data = tensor
+            param._ref = weakref.ref(tensor)
             setattr(tensor, _PARAM_ATTR, param)
         return param
+
+    @property
+    def _data(self):
+        """The tensor; ``None`` before :meth:`initialize`.  Raises when the
+        block that owned it is gone."""
+        if self._ref is None:
+            return self._owned
+        tensor = self._ref()
+        if tensor is None:
+            raise RuntimeError(f"Parameter {self.name!r} belongs to a block "
+                               f"that has been freed; collect_params() of a "
+                               f"live block gives its parameters")
+        return tensor
 
     def __repr__(self):
         return f"Parameter {self.name} (grad_req={self.grad_req})"
@@ -89,7 +112,7 @@ class Parameter:
                 (Uniform() if init is None else init)(self.name, data,
                                                       generator)
         autograd._set_grad_req(data, self._grad_req)
-        self._data = data
+        self._owned, self._ref = data, None
 
     def _check(self):
         if self._data is None:

@@ -117,10 +117,12 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self):
+        """A numpy copy of the value (never a view of a CPU tensor, which a
+        later in-place write would change)."""
         t = self._data.detach()
         if t.dtype is torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
     def asscalar(self):
         if self.size != 1:

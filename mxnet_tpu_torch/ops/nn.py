@@ -326,3 +326,71 @@ def _dropout_op(data, p=0.5, mode="training", axes=None, cudnn_off=False,
     mask = torch.empty(shape, dtype=data.dtype, device=data.device) \
         .bernoulli_(keep, generator=generator)
     return data * mask / keep
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward of MXNet's loss layer
+    (``src/operator/softmax_output-inl.h``), which ignores the head
+    gradient: ``(softmax - target) * grad_scale / normalization``, the
+    target being the one-hot label, or with ``smooth_alpha`` the label
+    smoothed to ``1 - alpha`` and ``alpha / (k - 1)``."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, flat, grad_scale, ignore_label,
+                use_ignore, normalization, smooth_alpha):
+        x = data.reshape(data.shape[0], -1) if flat else data
+        out = torch.softmax(x, dim=axis).reshape(data.shape)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (axis, flat, grad_scale, ignore_label, use_ignore,
+                     normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, label = ctx.saved_tensors
+        (axis, flat, scale, ignore_label, use_ignore, normalization,
+         alpha) = ctx.attrs
+        prob = out.reshape(out.shape[0], -1) if flat else out
+        k = prob.shape[axis]
+        lab = label.reshape(prob.shape[:axis] + prob.shape[axis + 1:]) \
+            if flat else label
+        onehot = F.one_hot(lab.long().clamp(0, k - 1), k).to(out.dtype) \
+            .movedim(-1, axis)
+        if alpha:
+            onehot = onehot * (1.0 - alpha - alpha / (k - 1)) + alpha / (k - 1)
+        grad = prob - onehot
+        keep = lab != ignore_label
+        if use_ignore:
+            grad = grad * keep.unsqueeze(axis).to(out.dtype)
+        if normalization == "batch":
+            scale = scale / out.shape[0]
+        elif normalization == "valid" and use_ignore:
+            grad = grad / keep.sum().clamp_min(1).to(out.dtype)
+        grad = (grad * scale).reshape(out.shape)
+        lgrad = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad, lgrad, None, None, None, None, None, None, None
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def _softmax_output_op(data, label, grad_scale=1.0, ignore_label=-1.0,
+                       multi_output=False, use_ignore=False,
+                       preserve_shape=False, normalization="null",
+                       out_grad=False, smooth_alpha=0.0):
+    """MXNet's softmax loss head (``mxnet_tpu/ops/nn.py:467``): the output
+    is the softmax of ``data``, over axis 1 with ``multi_output``, over the
+    last axis with ``preserve_shape``, else over all axes after the first
+    (the reference flattens ``data`` to 2-D).  Its gradient is
+    :class:`_SoftmaxOutput`'s, whatever the head gradient; ``label`` takes
+    zeros.  ``normalization`` divides by the batch (``"batch"``) or, with
+    ``use_ignore``, by the count of labels that are not ``ignore_label``
+    (``"valid"``), as the JAX op does.  Two departures from the JAX op,
+    which ignores these attributes: ``preserve_shape`` and ``smooth_alpha``
+    act as in the reference."""
+    multi = parse_bool(multi_output)
+    preserve = parse_bool(preserve_shape)
+    axis = 1 if multi else (data.dim() - 1 if preserve else 1)
+    flat = not multi and not preserve and data.dim() > 2
+    return _SoftmaxOutput.apply(
+        data, label, axis, flat, parse_float(grad_scale, 1.0),
+        parse_float(ignore_label, -1.0), parse_bool(use_ignore),
+        str(normalization), parse_float(smooth_alpha, 0.0))

@@ -11,6 +11,7 @@ a rule there.
 from __future__ import annotations
 
 import math
+import pickle
 import warnings
 
 import torch
@@ -217,14 +218,27 @@ class Adam(Optimizer):
 create = Optimizer.create_optimizer
 
 
+def _state_to(state, device):
+    """An optimizer state (a tensor, a tuple of them or None) on
+    ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_to(s, device) for s in state)
+    return state
+
+
 class Updater:
     """Per-index optimizer state, made on first update
     (``mxnet_tpu/optimizer/optimizer.py:799``).  A call with several
-    indices takes the grouped path when the optimizer aggregates."""
+    indices takes the grouped path when the optimizer aggregates.
+    ``get_states``/``set_states`` pickle the states on the CPU; loaded
+    states move to their weight's device at its next update."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self._loaded = False
 
     def __call__(self, index, grad, weight):
         batched = isinstance(index, (list, tuple))
@@ -234,12 +248,30 @@ class Updater:
         for idx, w in zip(indices, weights):
             if idx not in self.states:
                 self.states[idx] = self.optimizer.create_state(idx, w)
+            elif self._loaded:
+                self.states[idx] = _state_to(self.states[idx], w.device)
         states = [self.states[idx] for idx in indices]
         if len(indices) > 1 and self.optimizer.aggregate_num > 1:
             self.optimizer.update_multi(indices, weights, grads, states)
         else:
             for idx, w, g, s in zip(indices, weights, grads, states):
                 self.optimizer.update(idx, w, g, s)
+
+    def get_states(self, dump_optimizer=False):
+        """The states (and with ``dump_optimizer`` the optimizer) as
+        pickled bytes, tensors on the CPU."""
+        states = {k: _state_to(v, "cpu") for k, v in self.states.items()}
+        return pickle.dumps((states, self.optimizer) if dump_optimizer
+                            else states)
+
+    def set_states(self, states):
+        """Load what :meth:`get_states` wrote."""
+        states = pickle.loads(states)
+        if isinstance(states, tuple) and len(states) == 2:
+            self.states, self.optimizer = states
+        else:
+            self.states = states
+        self._loaded = True
 
 
 def get_updater(optimizer):

@@ -183,6 +183,11 @@ OP_CASES += [Case("LeakyReLU", (("n", (2, 3, 4)), ("p", (3,))),
                   {"act_type": "prelu"})]
 OP_CASES += [Case("Activation", (("n", S),), {"act_type": t})
              for t in ("relu", "sigmoid", "tanh", "softrelu", "softsign")]
+# SoftmaxOutput's gradient ignores the head gradient (two cases here, two
+# after ``softmax``: each half of the table keeps its earlier cases)
+OP_CASES += [Case("SoftmaxOutput", (("n", (4, 5)), ("i", (4,), 0, 5))),
+             Case("SoftmaxOutput", (("n", (2, 3, 4)), ("i", (2, 4), 0, 3)),
+                  {"multi_output": True, "grad_scale": 0.5})]
 
 _BIN = ["elemwise_add", "elemwise_sub", "elemwise_mul", "_maximum",
         "_minimum", "_hypot", "_grad_add"]
@@ -452,6 +457,10 @@ OP_CASES += [
     Case("softmax", (("n", S3),), {}, dtype="float16"),
     Case("log_softmax", (("n", S3),)),
     Case("softmin", (("n", S3),), {"axis": 0}),
+    Case("SoftmaxOutput", (("n", (6, 5)), ("i", (6,), 0, 3)),
+         {"use_ignore": True, "ignore_label": 1, "normalization": "valid"}),
+    Case("Softmax", (("n", (4, 5)), ("i", (4,), 0, 5)),
+         {"normalization": "batch"}),
     Case("Dropout", (("n", S3),), {"p": 0.5}, grad=False),
     Case("_contrib_flash_attention", (("n", (2, 2, 16, 8)),
                                       ("n", (2, 2, 16, 8)),

@@ -23,10 +23,18 @@ Tolerances, fp32 throughout:
   JAX's, the step-s moves may part by about 2 R_s lr, and by 2 lr once
   R_s >= 1, where the gradient is rounding noise (the key bias of each
   attention layer, zero in exact arithmetic).  The elements that need this
-  allowance are counted: at most 16 (measured: 4 on the flash route, 2 on
-  the dense one, all key-bias elements but one, none more than 5.4e-7
-  apart; Adam's epsilon keeps a step on a gradient of 1e-10 at a hundredth
-  of lr).
+  allowance (past 1e-4 of their tensor's largest) are counted by kind:
+  key-bias elements (the middle third of each layer's ``qkv.bias``) are
+  not capped, since each run's gradient there is rounding noise; at most
+  8 others.  Measured over JAX initialisations from ``mx.random.seed``
+  0-15 on both routes: 0 to 30 key-bias elements (30 at seed 1 on the
+  flash route, 18 at seed 13 on the dense one) and 0 to 3 others; the
+  others sit in tensors that start at zero (biases and LayerNorm betas,
+  whose largest element, which scales the tolerance, is itself a few lr
+  after 3 steps), except one element of ``decoder_transform.weight`` at
+  seed 5 (flash), whose gradient is 3% of its tensor's largest.  The
+  fixture seeds the JAX initialisation (seed 0), so that the weights do
+  not depend on which tests ran before in the same process.
 """
 import numpy as np
 import pytest
@@ -64,6 +72,7 @@ def _batch(route):
 
 @pytest.fixture(scope="module")
 def jax_net():
+    mx.random.seed(0)
     net = jax_bert("bert_tiny", vocab_size=V, max_length=T, dropout=0.0)
     net.initialize()
     x = mx.nd.array(np.zeros((1, T)), dtype="int32")
@@ -169,14 +178,18 @@ def _check_against_jax(jax_run, port_run):
                                      posinf=1.0)
             worst[k] = np.maximum(worst.get(k, 0.0), np.minimum(frac, 1.0))
             allow[k] = allow.get(k, 0.0) + 2 * LR * worst[k]
-    past = 0
+    others = {}
     for k, ref in jp.items():
         diff = np.abs(pp[k] - ref)
         scale = TOL * np.abs(ref).max()
         assert (diff <= scale + allow[k]).all(), \
             (k, (diff - scale - allow[k]).max())
-        past += int((diff > scale).sum())
-    assert past <= 16, past
+        past = diff > scale
+        if k.endswith("attention.qkv.bias"):
+            past[ref.shape[0] // 3:2 * ref.shape[0] // 3] = False
+        if past.any():
+            others[k] = int(past.sum())
+    assert sum(others.values()) <= 8, others
 
 
 @pytest.mark.parametrize("route", ["flash", "dense"])

@@ -51,7 +51,14 @@ def test_port_imports_with_jax_blocked():
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.gluon.loss, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.parameter, "
             "mxnet_tpu_torch.ops.optimizer_ops, "
-            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.test_utils\n"
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.test_utils, "
+            "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
+            "mxnet_tpu_torch.module, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.kvstore, "
+            "mxnet_tpu_torch.model, mxnet_tpu_torch.callback\n"
+            "s = mxnet_tpu_torch.sym.FullyConnected("
+            "mxnet_tpu_torch.sym.var('data'), num_hidden=2)\n"
+            "s.simple_bind(ctx=mxnet_tpu_torch.cpu(), data=(1, 3)).forward()\n"
             "mxnet_tpu_torch.nd.array([1.0], ctx=mxnet_tpu_torch.cpu())\n"
             "assert not any(k.split('.')[0] in ('jax', 'mxnet_tpu', "
             "'ml_dtypes') and "
@@ -99,6 +106,16 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mx.nd.random.uniform(shape=(2,))
     assert mx.nd.zeros((2,), ctx=mx.cpu()).context == mx.cpu()
+
+    # the symbolic path too: Module, simple_bind and the kvstore
+    net = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.mod.Module(net, label_names=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        net.simple_bind(data=(1, 3))
+    with mx.cpu():
+        assert net.simple_bind(data=(1, 3)).arg_dict["data"].context == \
+            mx.cpu()
 
 
 def test_contexts_name_torch_devices():

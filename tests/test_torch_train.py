@@ -672,3 +672,42 @@ def test_dense_activation_matches_jax(act):
                                rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="unknown activation"):
         gluon.nn.Dense(3, 5, activation="nosuch", device="cpu")
+
+
+def test_dropped_block_is_freed_without_the_collector():
+    """A block's tensors hold their gluon Parameters and a Parameter holds
+    its block's tensor weakly: with the cyclic collector off, deleting the
+    block, its Trainer and its Adam states frees the weights at once.  A
+    Parameter of the freed block raises on use; on a live block the
+    Trainer and Adam work as before."""
+    import gc
+    import weakref
+    net = get_model("resnet18_v1", classes=10, device="cpu")
+    net.initialize()
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 3, 32, 32)
+                         .astype("float32"))
+    net(x)
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-3})
+    start = net.features[0].weight.detach().clone()
+    gc.disable()
+    try:
+        for _ in range(2):
+            with ag.record():
+                loss = net(x).sum()
+            ag.backward(loss)
+            trainer.step(2)
+        weight = net.features[0].weight
+        assert params["features.0.weight"].data() is weight
+        assert trainer._updater.states         # Adam's states exist
+        moved = weight.detach().clone()
+        alive = [weakref.ref(t) for t in (weight, next(iter(
+            trainer._updater.states.values()))[0])]
+        some = params["features.0.weight"]
+        del net, weight, trainer, params, loss
+        assert [r() for r in alive] == [None, None]
+    finally:
+        gc.enable()
+    with pytest.raises(RuntimeError, match="has been freed"):
+        some.data()
+    assert torch.isfinite(moved).all() and not torch.equal(moved, start)
