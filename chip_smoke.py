@@ -129,6 +129,41 @@ Phases, in order; any failure exits non-zero:
    is the Module path's main run: the bn-stats record's
    ``module_launches`` counts it.
 
+16. AMP BERT parity: phase 10's cut (2 layers at bert_base width, batch
+   4, T 128, seeded weights) under ``amp.init()`` (bf16), 3 Adam steps
+   with ``amp.init_trainer`` and ``amp.scale_loss``, on the card and on
+   the CPU (three CPU runs: AMP, AMP with the batch reordered, fp32).  The
+   dtype of every layer output on the card equals the CPU's; the losses,
+   every step's unscaled gradients and the parameters after step 3 (past
+   Adam's allowance, phase 10) are within twice the CPU AMP run's own
+   noise, per tensor in L2 norm: the larger of its distance from itself
+   with the batch reordered and from the fp32 run (bf16 rounding is
+   discontinuous, so another summation order, the card's, draws that
+   noise anew); the flash kernel runs on bf16 q, k, v, one launch and
+   one backward call a layer a step;
+17. AMP BERT-base pretraining: phase 11's configuration under
+   ``amp.init()``, 3 warm and 10 timed steps: step ms, sequences/s and
+   peak memory beside phase 11's fp32 step, a ``[profile]`` of one step
+   (idle share, top kernels, the flash forward's and Adam's shares, the
+   copy (cast) kernels' device ms), 156 flash launches, all on bf16;
+18. AMP ResNet-50 v1 training: phase 8's parity under AMP (2 SGD steps at
+   batch 8, card against three CPU runs, held as in phase 16, equal
+   layer dtypes), then phase 9's batch-32 run under AMP, timed and
+   profiled beside phase 9's; 53 bn-stats launches a forward, all on fp32
+   inputs (BatchNorm is on AMP's fp32 list);
+19. fp16 storage and the symbolic route: ResNet-50 v1 ``cast("float16")``
+   (BatchNorm keeps fp32 parameters) with ``SGD(multi_precision=True,
+   momentum=0.9)``, 2 steps at batch 8, card against CPU (held as in
+   phase 16, the fp32 run being phase 8's), 53 bn-stats launches a
+   forward on fp16 inputs, and ``mp_sgd_mom_update`` per parameter on
+   the card equal bit for bit to the grouped update; then
+   ``amp.convert_model`` of :func:`resnet_v1_symbol` through
+   ``Module.forward``, inference at batch 8, card against CPU.
+
+Phase 3 also holds and times the flash forward in bf16 at phase 11's
+(32, 12, 128, 64), the AMP path's shape, beside SDPA in bf16 and the bound
+on the bf16 tensor-core rate.
+
 Phase 13 reads its peak without a manual ``gc.collect()``: a gluon
 Parameter holds its block's tensor weakly, so the parity runs' models are
 freed when they return, and the peak must not exceed phase 11's.
@@ -144,9 +179,9 @@ and of SDPA's forward plus backward (a yardstick the port never calls),
 beside the backward's bound.  Phase 3 holds and times the forward at phase
 11's shape too.
 
-Phases 4, 6, 9 and 11 print a ``[profile]`` breakdown of one micro-batch
-or step.  The last two lines are the kernels' JSON record and the device
-line.
+Phases 4, 6, 9, 11, 17 and 18 print a ``[profile]`` breakdown of one
+micro-batch or step.  The last two lines are the kernels' JSON record and
+the device line.
 """
 from __future__ import annotations
 
@@ -347,6 +382,33 @@ def phase_kernel(fa, card):
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}; 3xTF32 tensor-core rate), fp32 FMA "
                 f"bound {r['bound_fma_ms']:.4f} ms; on {card}")
+    # the AMP pretraining path's dtype and shape (phase 17): bf16 q/k/v
+    q, k, v = (torch.from_numpy(rng.randn(*TRAIN_QKV).astype("float32"))
+               .to(dev, torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(TRAIN_QKV[-1])
+    out = fa.flash_attention(q, k, v, scale=scale)
+    ref = fa._reference(q.float(), k.float(), v.float(), False, scale)
+    bf16 = {"shape": list(TRAIN_QKV), "dtype": "bfloat16",
+            "max_abs_err": (out.float() - ref).abs().max().item(),
+            "ms": device_ms(lambda: fa.flash_attention(q, k, v,
+                                                       scale=scale)),
+            "plain_ms": device_ms(lambda: fa._reference(q, k, v, False,
+                                                        scale)),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))}
+    check(out.dtype == torch.bfloat16 and bf16["max_abs_err"] <= 2e-2,
+          f"bf16 kernel at {TRAIN_QKV} disagrees: {bf16['max_abs_err']}")
+    bf16["bound_ms"], bf16["bound_by"] = attention_bound_ms(
+        TRAIN_QKV, torch.bfloat16)
+    log(f"[kernel] {TRAIN_QKV} bf16 causal=False: max_abs_err "
+        f"{bf16['max_abs_err']:.3e} (tol 2e-2); kernel {bf16['ms']:.4f} ms, "
+        f"plain {bf16['plain_ms']:.4f} ms, sdpa bf16 "
+        f"{bf16['library_ms']:.4f} ms, bound {bf16['bound_ms']:.4f} ms "
+        f"({bf16['bound_by']}; {4 * math.prod(TRAIN_QKV) * 2 / 1e6:.1f} MB "
+        f"at {HBM_BYTES_PER_S / 1e12:g} TB/s, "
+        f"{4 * math.prod(TRAIN_QKV) * TRAIN_QKV[2] / 1e9:.2f} GFLOP at the "
+        f"bf16 dense tensor-core rate "
+        f"{TENSOR_FLOPS[torch.bfloat16] / 1e12:g} TFLOP/s); on {card}")
     main = timed[SLICE_QKV, False]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -357,7 +419,8 @@ def phase_kernel(fa, card):
             "t512": {"shape": list(LONG_QKV), **timed[LONG_QKV, False],
                      "causal": timed[LONG_QKV, True]},
             "train": {"shape": list(TRAIN_QKV), "max_abs_err": errs[TRAIN_QKV],
-                      **timed[TRAIN_QKV, False]}}
+                      **timed[TRAIN_QKV, False]},
+            "train_bf16": bf16}
 
 
 def flash_backward_bound_ms(shape, dtype):
@@ -496,6 +559,41 @@ def serve(batcher, payloads):
     check(all(a is not None for a in answers), "a request got no answer")
     return answers, sorted((d - s) * 1e3 for s, d in zip(t_submit, t_done)), \
         wall
+
+
+@contextlib.contextmanager
+def kernel_dtypes(mod):
+    """Records the input dtype of every CUDA launch of ``mod``'s kernel
+    (the flash or the bn-stats module: their ``_check`` runs once before
+    each launch and nowhere else)."""
+    seen, real = [], mod._check
+
+    def checked(x, *rest):
+        seen.append(x.dtype)
+        return real(x, *rest)
+
+    mod._check = checked
+    try:
+        yield seen
+    finally:
+        mod._check = real
+
+
+def _kernel_share(kernels, busy_ms):
+    """Device ms of the kernel families that show whether AMP reached the
+    products, by name: copies (the casts among them), NCHW<->NHWC
+    transposes, tensor-core products in bf16/fp16 (cuBLAS's ``nvjet``
+    kernels on Hopper, kernels named for bf16 or f16 operands) and fp32
+    products on the FMA units (``ffma``, ``sgemm``, ``simt``)."""
+    def ms(*words):
+        return sum(e.self_device_time_total for e in kernels
+                   if any(w in e.key.lower() for w in words)) / 1e3
+    parts = [("copy kernels (casts among them)", ms("copy")),
+             ("nchw<->nhwc transposes", ms("nchwtonhwc", "nhwctonchw")),
+             ("bf16/fp16 tensor-core products", ms("nvjet", "bf16",
+                                                  "f16f16")),
+             ("fp32 FMA products", ms("ffma", "sgemm", "simt"))]
+    return ", ".join(f"{n} {v:.3f} ms ({v / busy_ms:.3f})" for n, v in parts)
 
 
 @contextlib.contextmanager
@@ -969,25 +1067,40 @@ def no_plain_stats_on_cuda(bs):
           f"plain bn statistics ran on CUDA tensors: {plain_on_cuda[:3]}")
 
 
-def _train(net, x, y, steps):
+def _train(net, x, y, steps, amp_on=False, opt=None):
     """``steps`` SGD steps of the user's loop; returns (per-step losses,
     the gradients of step 1, final parameters and running statistics),
-    all on the host."""
+    all on the host, as float32.  ``amp_on``: under ``amp.init()`` with
+    ``amp.init_trainer`` and ``amp.scale_loss``, the gradients unscaled;
+    ``opt`` replaces phase 8's optimizer settings."""
     from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
     params = net.collect_params()
-    trainer = gluon.Trainer(params, "sgd", dict(TRAIN_OPT))
+    trainer = gluon.Trainer(params, "sgd", dict(opt or TRAIN_OPT))
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     losses, grads = [], None
-    for step in range(steps):
-        with autograd.record():
-            loss = loss_fn(net(x), y)
-        autograd.backward(loss)
-        losses.append(loss.detach().cpu().numpy())
-        if step == 0:
-            grads = {k: p.grad().cpu().numpy().copy()
-                     for k, p in params.items() if p.grad_req != "null"}
-        trainer.step(x.shape[0])
-    return losses, grads, {k: p.data().detach().cpu().numpy()
+    if amp_on:
+        amp.init()
+        amp.init_trainer(trainer)
+    try:
+        for step in range(steps):
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+                if amp_on:
+                    with amp.scale_loss(loss, trainer) as scaled:
+                        autograd.backward(scaled)
+            if not amp_on:
+                autograd.backward(loss)
+            losses.append(loss.detach().float().cpu().numpy())
+            if step == 0:
+                scale = trainer._amp_loss_scaler.loss_scale if amp_on \
+                    else 1.0
+                grads = {k: p.grad().float().cpu().numpy() / scale
+                         for k, p in params.items() if p.grad_req != "null"}
+            trainer.step(x.shape[0])
+    finally:
+        amp.deinit()
+    return losses, grads, {k: p.data().detach().float().cpu().numpy()
                            for k, p in params.items()}
 
 
@@ -1054,13 +1167,18 @@ def phase_train_parity(bs, path):
         f"CPU: {[float(l.mean()) for l in ref[0]]}")
 
 
-def phase_train(bs, path, card):
+def phase_train(bs, path, card, amp_on=False):
     """The main path at full width: batch 32, 3 warm and 10 timed steps;
     returns (launches, {BatchNorm input shape: count per forward}, step
-    ms, peak bytes)."""
+    ms, peak bytes).  ``amp_on`` (phase 18): the same under ``amp.init()``
+    with ``init_trainer`` and ``scale_loss``; every bn-stats launch must
+    read fp32 (BatchNorm is on AMP's fp32 list)."""
     from mxnet_tpu_torch import autograd, gluon, telemetry
+    from mxnet_tpu_torch.contrib import amp
     from mxnet_tpu_torch.gluon.model_zoo import get_model
     from mxnet_tpu_torch.gluon.nn import BatchNorm
+    tag, precision = ("[amp_train]", "AMP bf16") if amp_on \
+        else ("[train]", "fp32")
 
     net = get_model("resnet50_v1", classes=1000)
     net.load_parameters(str(path))
@@ -1075,11 +1193,18 @@ def phase_train(bs, path, card):
                          .astype("float32")).cuda()
     trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    if amp_on:
+        amp.init()
+        amp.init_trainer(trainer)
 
     def step():
         with autograd.record():
             loss = loss_fn(net(x), y)
-        autograd.backward(loss)
+            if amp_on:
+                with amp.scale_loss(loss, trainer) as scaled:
+                    autograd.backward(scaled)
+        if not amp_on:
+            autograd.backward(loss)
         trainer.step(TRAIN_BATCH)
         return loss.detach()
 
@@ -1087,7 +1212,7 @@ def phase_train(bs, path, card):
     torch.cuda.reset_peak_memory_stats()
     telemetry.enable()
     telemetry.reset()
-    with no_plain_stats_on_cuda(bs):
+    with no_plain_stats_on_cuda(bs), kernel_dtypes(bs) as seen:
         bs.bn_stats.launches = 0                 # the main path starts
         t0 = time.perf_counter()
         losses = [step() for _ in range(WARM_STEPS)]
@@ -1113,11 +1238,13 @@ def phase_train(bs, path, card):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(launches == BN_PER_FORWARD * steps,
           f"{launches} bn-stats launches in {steps} steps")
+    check(set(seen) == {torch.float32},
+          f"bn-stats launched on {set(seen)} inputs (want float32)")
     check(len(bn_shapes) == BN_PER_FORWARD * WARM_STEPS,
           f"{len(bn_shapes)} BatchNorm calls in {WARM_STEPS} forwards")
     step_ms = (t2 - t1) * 1e3 / TIMED_STEPS
     upd = snap["spans"].get("trainer.update", {"calls": 1, "total_ms": 0.0})
-    log(f"[train] resnet50_v1 batch {TRAIN_BATCH} fp32 (TF32 off): "
+    log(f"{tag} resnet50_v1 batch {TRAIN_BATCH} {precision} (TF32 off): "
         f"{WARM_STEPS} warm steps {(t1 - t0) * 1e3:.1f} ms, {TIMED_STEPS} "
         f"timed steps {step_ms:.3f} ms each, "
         f"{TRAIN_BATCH * 1e3 / step_ms:.2f} images/s; peak device memory "
@@ -1125,8 +1252,11 @@ def phase_train(bs, path, card):
         f"({BN_PER_FORWARD} per step); trainer.update "
         f"{upd['total_ms'] / max(upd['calls'], 1):.3f} ms host per step; "
         f"on {card}")
-    log(f"[train] mean loss per step: {[round(l, 4) for l in losses]}")
-    profile_train_step(step, step_ms)
+    log(f"{tag} mean loss per step: {[round(l, 4) for l in losses]}")
+    try:
+        profile_train_step(step, step_ms)
+    finally:
+        amp.deinit()
     counts = {}
     for shape in bn_shapes[:BN_PER_FORWARD]:
         counts[shape] = counts.get(shape, 0) + 1
@@ -1155,7 +1285,8 @@ def profile_train_step(step, step_ms, top=12):
         f"(mean of {TIMED_STEPS}), device busy {busy_ms:.3f} ms, idle share "
         f"{1 - busy_ms / step_ms:.3f}, {len(kernels)} kernels, "
         f"{sum(e.count for e in kernels)} launches; bn-stats kernels "
-        f"{bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy)")
+        f"{bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy); "
+        f"{_kernel_share(kernels, busy_ms)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
@@ -1220,17 +1351,25 @@ def _pretrain_step_fn(net, batch, trainer, on_grads=None):
     """One step of the user's loop (``example/bert/pretrain.py``'s
     ``step``) on ``batch`` = (tokens, segments, valid_mask or None,
     positions, mlm labels, nsp labels), tensors on the net's device;
-    ``on_grads()`` runs between the backward and the update."""
+    ``on_grads()`` runs between the backward and the update.  A trainer
+    with AMP's loss scaler (``amp.init_trainer``) takes the backward
+    through ``amp.scale_loss``, as MXNet's AMP examples write it."""
     from mxnet_tpu_torch import autograd, gluon
     sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    from mxnet_tpu_torch.contrib import amp
     tok, seg, valid, pos, mlm_y, nsp_y = batch
+    scaled_loss = getattr(trainer, "_amp_loss_scaler", None) is not None
 
     def step():
         with autograd.record():
             _, _, mlm, nsp = net(tok, seg, valid, pos)
             loss = sce(mlm.reshape(-1, VOCAB), mlm_y.reshape(-1)).mean() + \
                 sce(nsp, nsp_y).mean()
-        autograd.backward(loss)
+            if scaled_loss:
+                with amp.scale_loss(loss, trainer) as scaled:
+                    autograd.backward(scaled)
+        if not scaled_loss:
+            autograd.backward(loss)
         if on_grads is not None:
             on_grads()
         trainer.step(tok.shape[0])
@@ -1414,10 +1553,16 @@ def phase_pretrain_parity(fa):
                           (card[1], ref[1], again[1]), zero_init)
 
 
-def phase_pretrain(fa, card):
+def phase_pretrain(fa, card, amp_on=False):
     """BERT-base pretraining at full width and depth, batch 32, on tensors;
-    returns (flash launches, backward calls, step ms, peak bytes)."""
+    returns (flash launches, backward calls, step ms, peak bytes).
+    ``amp_on`` (phase 17): the same under ``amp.init()`` with
+    ``init_trainer`` and ``scale_loss``, every flash launch on bf16
+    q, k, v, and no dense-route steps after."""
     from mxnet_tpu_torch import gluon, telemetry
+    from mxnet_tpu_torch.contrib import amp
+    tag, precision = ("[amp_pretrain]", "AMP bf16") if amp_on \
+        else ("[pretrain]", "fp32")
     net = _bert(PT_LAYERS, None)                     # the default: the GPU
     check(next(net.parameters()).is_cuda, "model did not land on cuda")
     net.initialize(generator=torch.Generator(
@@ -1429,17 +1574,22 @@ def phase_pretrain(fa, card):
                                           for a in arrays)
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": PRETRAIN_LR})
+    if amp_on:
+        amp.init()
+        amp.init_trainer(trainer)
     step = _pretrain_step_fn(net, (tok, seg, None, pos, mlm_y, nsp_y),
                              trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     telemetry.enable()
     telemetry.reset()
-    with no_plain_attention_on_cuda(fa):
+    with no_plain_attention_on_cuda(fa), kernel_dtypes(fa) as seen:
         fa.flash_attention.launches = 0          # the main path starts
         fa.flash_attention.backward_calls = 0
         t0 = time.perf_counter()
         losses = [step() for _ in range(PT_WARM)]
+        if amp_on:
+            gc.collect()             # as in phase 9: not in a timed step
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for _ in range(PT_TIMED):
@@ -1458,11 +1608,14 @@ def phase_pretrain(fa, card):
     check(launches == PT_LAYERS * steps and calls == PT_LAYERS * steps,
           f"{launches} flash launches and {calls} backward calls in {steps} "
           f"steps (want {PT_LAYERS} each a step)")
+    want = torch.bfloat16 if amp_on else torch.float32
+    check(set(seen) == {want}, f"flash launched on {set(seen)} (want {want})")
     step_ms = (t2 - t1) * 1e3 / PT_TIMED
     upd = snap["spans"].get("trainer.update", {"calls": 1, "total_ms": 0.0})
-    log(f"[pretrain] bert_base ({n_params} parameters) batch {PT_BATCH} x "
-        f"T {SEQ}, {MASKED} masked, Adam lr {PRETRAIN_LR:g}, fp32 (TF32 "
-        f"off), flash route: {PT_WARM} warm steps {(t1 - t0) * 1e3:.1f} ms, "
+    log(f"{tag} bert_base ({n_params} parameters) batch {PT_BATCH} x "
+        f"T {SEQ}, {MASKED} masked, Adam lr {PRETRAIN_LR:g}, {precision} "
+        f"(TF32 off), flash route: {PT_WARM} warm steps "
+        f"{(t1 - t0) * 1e3:.1f} ms, "
         f"{PT_TIMED} timed steps {step_ms:.3f} ms each, "
         f"{PT_BATCH * 1e3 / step_ms:.2f} sequences/s, "
         f"{PT_BATCH * SEQ * 1e3 / step_ms:.1f} tokens/s; peak device memory "
@@ -1470,8 +1623,13 @@ def phase_pretrain(fa, card):
         f"backward calls ({PT_LAYERS} each a step); trainer.update "
         f"{upd['total_ms'] / max(upd['calls'], 1):.3f} ms host per step; "
         f"on {card}")
-    log(f"[pretrain] loss per step: {[round(l, 4) for l in losses]}")
-    profile_pretrain_step(fa, step, step_ms)
+    log(f"{tag} loss per step: {[round(l, 4) for l in losses]}")
+    try:
+        profile_pretrain_step(fa, step, step_ms)
+    finally:
+        amp.deinit()
+    if amp_on:
+        return launches, calls, step_ms, peak
 
     # the dense route: the same function with the bench's all-ones mask
     dense = _pretrain_step_fn(net, (tok, seg, valid, pos, mlm_y, nsp_y),
@@ -1546,7 +1704,8 @@ def profile_pretrain_step(fa, step, step_ms, top=12):
         f"{bwd_ms:.3f} ms in {len(spans)} calls (CUDA events, "
         f"{bwd_ms / busy_ms:.3f} of busy), flash forward kernel "
         f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f}), Adam _foreach "
-        f"kernels {adam_ms:.3f} ms ({adam_ms / busy_ms:.3f})")
+        f"kernels {adam_ms:.3f} ms ({adam_ms / busy_ms:.3f}); "
+        f"{_kernel_share(kernels, busy_ms)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
@@ -2136,6 +2295,331 @@ def profile_module_step(mod, ctx, x, y, step_ms, top=12):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
+
+# ------------------------------------------------- mixed precision (slice 9)
+PT_AMP_STEPS = 3
+
+
+def layer_dtypes(net):
+    """Forward hooks on every module under ``net`` recording (class,
+    output dtypes) in call order; returns (the list, the hooks)."""
+    trace = []
+
+    def hook(m, args, out):
+        outs = out if isinstance(out, (tuple, list)) else [out]
+        trace.append((type(m).__name__, tuple(str(o.dtype)[6:] for o in outs
+                                              if torch.is_tensor(o))))
+    return trace, [m.register_forward_hook(hook) for m in net.modules()
+                   if m is not net]
+
+
+def amp_held(tag, what, card, ref, again, fp32, ulp=2.0 ** -8):
+    """Each tensor of ``card`` within twice the CPU AMP run's own noise of
+    ``ref`` (L2): the largest of its distance from itself with the batch
+    reordered (``again``), from the CPU fp32 run (``fp32``) and one
+    rounding of the low-precision type (``ulp`` of its norm: 2^-8 for
+    bf16, 2^-11 for fp16).  Low-precision rounding is discontinuous, so
+    any change of summation order (the card's cuBLAS/cuDNN against the
+    CPU's) draws its rounding noise anew; the fp32 run's distance measures
+    that noise's size, and a tensor that reaches the loss through a
+    low-precision value (a bias added in bf16) carries at least one such
+    rounding in every element."""
+    worst, reorder, effect = (0.0, ""), 0.0, 0.0
+    for k, r in ref.items():
+        n_r = float(np.linalg.norm(r))
+        d_again = float(np.linalg.norm(again[k] - r))
+        d_fp32 = float(np.linalg.norm(fp32[k] - r))
+        noise = max(d_again, d_fp32, ulp * n_r, 1e-30)
+        worst = max(worst, (float(np.linalg.norm(card[k] - r)) / noise, k))
+        reorder = max(reorder, d_again / max(n_r, 1e-30))
+        effect = max(effect, d_fp32 / max(n_r, 1e-30))
+    log(f"{tag} {what}: card vs CPU AMP {worst[0]:.3f} of the CPU AMP "
+        f"run's own noise (worst {worst[1]}; tol 2); CPU AMP vs reordered "
+        f"up to {reorder:.3e}, vs fp32 up to {effect:.3e} of a tensor's "
+        f"norm")
+    check(all(np.isfinite(v).all() for v in card.values()),
+          f"{tag} non-finite {what}")
+    check(worst[0] <= 2.0, f"{tag} card disagrees with the CPU AMP run: "
+                           f"{what}")
+
+
+def _past_allowance(run, ref, allow):
+    """``run``'s parameters moved towards ``ref``'s by Adam's allowance."""
+    return {k: ref[k] + np.sign(v - ref[k]) * np.maximum(
+        np.abs(v - ref[k]) - allow[k], 0.0) for k, v in run.items()}
+
+
+def phase_amp_pretrain_parity(fa):
+    """Phase 16: 3 Adam steps of a 2-layer bert_base-width model under AMP
+    (``amp.init``, ``init_trainer``, ``scale_loss``), card against CPU:
+    the layers' dtypes equal, losses, every step's unscaled gradients and
+    the parameters (past Adam's allowance) held by :func:`amp_held`; the
+    flash kernel on bf16 q, k, v, one launch and one backward a layer a
+    step."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.contrib import amp
+    rng = np.random.RandomState(5)
+    batch = list(synth_batch(rng, PT_PARITY_BATCH, SEQ, VOCAB, MASKED))
+    cpu_net = _bert(PT_PARITY_LAYERS, "cpu")
+    cpu_net.initialize(generator=torch.Generator().manual_seed(1))
+    state = {k: v.clone() for k, v in cpu_net.state_dict().items()}
+    del cpu_net
+    perm = np.roll(np.arange(PT_PARITY_BATCH), 1)
+
+    def run(device, order, amp_on):
+        net = _bert(PT_PARITY_LAYERS, device)
+        net.load_state_dict({k: v.to(device) for k, v in state.items()})
+        tensors = [None if a is None else torch.from_numpy(a[order])
+                   .to(device) for a in batch[:2] + [None] + batch[3:]]
+        params = net.collect_params()
+        trainer = gluon.Trainer(params, "adam",
+                                {"learning_rate": PRETRAIN_LR})
+        grads = []
+
+        def on_grads():
+            scale = trainer._amp_loss_scaler.loss_scale if amp_on else 1.0
+            grads.append({k: p.grad().float().cpu().numpy() / scale
+                          for k, p in params.items()})
+        trace, hooks = layer_dtypes(net)
+        if amp_on:
+            amp.init()
+            amp.init_trainer(trainer)
+        try:
+            step = _pretrain_step_fn(net, tensors, trainer, on_grads)
+            losses = [float(step().float().cpu())
+                      for _ in range(PT_AMP_STEPS)]
+        finally:
+            amp.deinit()
+            for h in hooks:
+                h.remove()
+        return ({"l": np.array(losses)}, grads,
+                {k: p.data().detach().float().cpu().numpy()
+                 for k, p in params.items()}, trace)
+
+    t0 = time.perf_counter()
+    ref = run("cpu", np.arange(PT_PARITY_BATCH), True)
+    again = run("cpu", perm, True)
+    fp32 = run("cpu", np.arange(PT_PARITY_BATCH), False)
+    cpu_s = time.perf_counter() - t0
+    with no_plain_attention_on_cuda(fa), kernel_dtypes(fa) as seen:
+        fa.flash_attention.launches = 0          # the parity path starts
+        fa.flash_attention.backward_calls = 0
+        card = run("cuda", np.arange(PT_PARITY_BATCH), True)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches   # the parity path ends
+        calls = fa.flash_attention.backward_calls
+    want = PT_PARITY_LAYERS * PT_AMP_STEPS
+    log(f"[amp_pretrain] parity: {PT_PARITY_LAYERS}-layer bert_base width, "
+        f"batch {PT_PARITY_BATCH}, {PT_AMP_STEPS} Adam steps under AMP; 3 "
+        f"CPU runs (AMP, AMP reordered, fp32) in {cpu_s:.1f} s; card: "
+        f"{launches} flash launches on {sorted(map(str, set(seen)))}, "
+        f"{calls} backward calls (want {want} each); layer dtypes: "
+        f"{len(card[3])} outputs, card == CPU: {card[3] == ref[3]}")
+    check(launches == want and calls == want and
+          set(seen) == {torch.bfloat16},
+          f"[amp_pretrain] {launches} flash launches on {set(seen)} and "
+          f"{calls} backward calls (want {want} on bf16)")
+    check(card[3] == ref[3] and ("Dense", ("bfloat16",)) in card[3],
+          "[amp_pretrain] the card's layer dtypes differ from the CPU's")
+    amp_held("[amp_pretrain]", "losses", card[0], ref[0], again[0], fp32[0])
+    for i in range(PT_AMP_STEPS):
+        amp_held("[amp_pretrain]", f"step-{i + 1} gradients", card[1][i],
+                 ref[1][i], again[1][i], fp32[1][i])
+    params = [_past_allowance(r[2], ref[2], adam_allowance(
+        r[1], ref[1], PRETRAIN_LR)) for r in (card, again)]
+    amp_held("[amp_pretrain]", f"parameters after step {PT_AMP_STEPS} past "
+             f"Adam's allowance", params[0], ref[2], params[1], fp32[2])
+    return launches
+
+
+def phase_amp_train_parity(bs, path):
+    """Phase 18's parity: 2 SGD steps of ResNet-50 v1 at batch 8 under AMP,
+    card against CPU (phase 8's quantities, held by :func:`amp_held`),
+    the layers' dtypes equal, 53 bn-stats launches a forward on fp32
+    inputs."""
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    rng = np.random.RandomState(2)
+    x = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
+    y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
+    perm = np.roll(np.arange(PARITY_BATCH), 3)
+
+    def run(device, order, amp_on):
+        net = get_model("resnet50_v1", classes=1000, device=device)
+        net.load_parameters(str(path))
+        trace, hooks = layer_dtypes(net)
+        try:
+            out = _train(net, torch.from_numpy(x[order]).to(device),
+                         torch.from_numpy(y[order]).to(device),
+                         PARITY_STEPS, amp_on)
+        finally:
+            for h in hooks:
+                h.remove()
+        losses = {f"step {i + 1}": l[np.argsort(order)]
+                  for i, l in enumerate(out[0])}
+        return losses, out[1], out[2], trace
+
+    t0 = time.perf_counter()
+    ref = run("cpu", np.arange(PARITY_BATCH), True)
+    again = run("cpu", perm, True)
+    fp32 = run("cpu", np.arange(PARITY_BATCH), False)
+    cpu_s = time.perf_counter() - t0
+    with no_plain_stats_on_cuda(bs), kernel_dtypes(bs) as seen:
+        bs.bn_stats.launches = 0                 # the parity path starts
+        card = run("cuda", np.arange(PARITY_BATCH), True)
+        torch.cuda.synchronize()
+        launches = bs.bn_stats.launches          # the parity path ends
+    log(f"[amp_train] parity: 3 CPU runs (AMP, AMP reordered, fp32) of "
+        f"{PARITY_STEPS} steps at batch {PARITY_BATCH} in {cpu_s:.1f} s; "
+        f"card: {launches} bn-stats launches on "
+        f"{sorted(map(str, set(seen)))}; layer dtypes: {len(card[3])} "
+        f"outputs, card == CPU: {card[3] == ref[3]}")
+    check(launches == BN_PER_FORWARD * PARITY_STEPS and
+          set(seen) == {torch.float32},
+          f"[amp_train] {launches} bn-stats launches on {set(seen)} (want "
+          f"{BN_PER_FORWARD} a forward on float32)")
+    check(card[3] == ref[3] and ("Conv2D", ("bfloat16",)) in card[3],
+          "[amp_train] the card's layer dtypes differ from the CPU's")
+    for what, i in (("per-sample losses", 0), ("step-1 gradients", 1),
+                    ("parameters and running statistics after step "
+                     f"{PARITY_STEPS}", 2)):
+        amp_held("[amp_train]", what, card[i], ref[i], again[i], fp32[i])
+
+
+def phase_fp16_and_symbolic(bs, path, card_name):
+    """Phase 19.  (a) ResNet-50 v1 ``cast("float16")`` (BatchNorm stays
+    fp32) with ``SGD(multi_precision=True, momentum=0.9)``: 2 steps at
+    batch 8, card against CPU (:func:`amp_held`, the fp32 run being phase
+    8's), 53 bn-stats launches a forward on fp16 inputs; then
+    ``mp_sgd_mom_update`` per parameter on the card against the grouped
+    update, bit for bit.  (b) ``amp.convert_model`` of the symbolic
+    ResNet-50 v1 through ``Module.forward`` (inference, batch 8), card
+    against CPU.  Returns the bn-stats launches of (a)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.ops import optimizer_ops
+    from mxnet_tpu_torch.optimizer import aggregate, create
+    rng = np.random.RandomState(9)
+    x = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
+    y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
+    perm = np.roll(np.arange(PARITY_BATCH), 3)
+    opt = dict(TRAIN_OPT, multi_precision=True)
+
+    def run(device, order, half):
+        net = get_model("resnet50_v1", classes=1000, device=device)
+        net.load_parameters(str(path))
+        if half:
+            net.cast("float16")
+        xs = torch.from_numpy(x[order]).to(device)
+        out = _train(net, xs.half() if half else xs,
+                     torch.from_numpy(y[order]).to(device), PARITY_STEPS,
+                     opt=opt)
+        losses = {f"step {i + 1}": l[np.argsort(order)]
+                  for i, l in enumerate(out[0])}
+        return (losses,) + out[1:] + (net,)
+
+    t0 = time.perf_counter()
+    ref = run("cpu", np.arange(PARITY_BATCH), True)
+    again = run("cpu", perm, True)
+    fp32 = run("cpu", np.arange(PARITY_BATCH), False)
+    cpu_s = time.perf_counter() - t0
+    with no_plain_stats_on_cuda(bs), kernel_dtypes(bs) as seen:
+        bs.bn_stats.launches = 0                 # the fp16 path starts
+        card = run("cuda", np.arange(PARITY_BATCH), True)
+        torch.cuda.synchronize()
+        launches = bs.bn_stats.launches          # the fp16 path ends
+    net = card[3]
+    dtypes = {str(t.dtype)[6:] for t in net.state_dict().values()}
+    log(f"[fp16] resnet50_v1 cast('float16'), SGD multi_precision "
+        f"momentum 0.9: 3 CPU runs (fp16, fp16 reordered, fp32) of "
+        f"{PARITY_STEPS} steps at batch {PARITY_BATCH} in {cpu_s:.1f} s; "
+        f"card: {launches} bn-stats launches on "
+        f"{sorted(map(str, set(seen)))}; parameter dtypes {sorted(dtypes)}")
+    check(launches == BN_PER_FORWARD * PARITY_STEPS and
+          set(seen) == {torch.float16},
+          f"[fp16] {launches} bn-stats launches on {set(seen)} (want "
+          f"{BN_PER_FORWARD} a forward on float16)")
+    for what, i in (("per-sample losses", 0), ("step-1 gradients", 1),
+                    ("parameters and running statistics after step "
+                     f"{PARITY_STEPS}", 2)):
+        amp_held("[fp16]", what, card[i], ref[i], again[i], fp32[i],
+                 ulp=2.0 ** -11)
+
+    # mp_sgd_mom_update per parameter against the grouped update, on card
+    weights = [p for p in net.parameters() if p.dtype == torch.float16][:8]
+    grads = [torch.randn(w.shape, device=w.device).half() for w in weights]
+    o = create("sgd", **opt)
+    states = [o.create_state_multi_precision(i, w)
+              for i, w in enumerate(weights)]
+    single = [(w.detach().clone(), s[0].clone(), s[1].clone())
+              for w, s in zip(weights, states)]
+    grouped = [(w.detach().clone(), (s[0].clone(), s[1].clone()))
+               for w, s in zip(weights, states)]
+    lr, wd = o._get_lr(0), o._get_wd(0)
+    for (w, m32, mom), g in zip(single, grads):
+        optimizer_ops.mp_sgd_mom_update(w, g, mom, m32, lr, o.momentum, wd,
+                                        1.0 / PARITY_BATCH)
+    o.rescale_grad = 1.0 / PARITY_BATCH
+    aggregate.update_multi(o, list(range(len(weights))),
+                           [w for w, _ in grouped], grads,
+                           [s for _, s in grouped])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1][0]) and
+               torch.equal(a[2], b[1][1]) for a, b in zip(single, grouped))
+    log(f"[fp16] mp_sgd_mom_update on the card for {len(weights)} fp16 "
+        f"weights: the grouped multi-precision update equal bit for bit: "
+        f"{same}")
+    check(same, "[fp16] grouped multi-precision update differs from "
+                "mp_sgd_mom_update")
+
+    # (b) convert_model of the symbolic ResNet-50 v1, inference
+    sym = resnet_v1_symbol(mx.sym, MODULE_UNITS, MODULE_FILTERS, 1000)
+    rng = np.random.RandomState(10)
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=(PARITY_BATCH,) + IMAGE)
+    args = {n: _seeded(n, s, rng).astype("float32")
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    auxs = {n: _seeded(n.replace("moving_", "running_"), s, rng)
+            .astype("float32")
+            for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    xs = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
+
+    def infer(ctx, converted, order):
+        nd_args = {k: mx.nd.array(v, ctx=ctx) for k, v in args.items()}
+        nd_aux = {k: mx.nd.array(v, ctx=ctx) for k, v in auxs.items()}
+        s, a = sym, nd_args
+        if converted:
+            s, a, nd_aux = amp.convert_model(sym, nd_args, nd_aux)
+        mod = mx.mod.Module(s, context=ctx)
+        mod.bind(data_shapes=[("data", (PARITY_BATCH,) + IMAGE)],
+                 for_training=False)
+        mod.set_params(a, nd_aux)
+        mod.forward(mx.io.DataBatch([mx.nd.array(xs[order], ctx=ctx)]),
+                    is_train=False)
+        out = mod.get_outputs()[0]
+        n_cast = sum(1 for n in s._topo() if n.op is not None and
+                     n.op.name == "amp_cast")
+        lp = sum(1 for v in a.values() if str(v.dtype) == "torch.bfloat16")
+        return {"p": out.asnumpy()[np.argsort(order)]}, str(out.dtype), \
+            n_cast, lp
+
+    t0 = time.perf_counter()
+    ref = infer(mx.cpu(), True, np.arange(PARITY_BATCH))
+    again = infer(mx.cpu(), True, perm)
+    fp32 = infer(mx.cpu(), False, np.arange(PARITY_BATCH))
+    cpu_s = time.perf_counter() - t0
+    card = infer(mx.gpu(0), True, np.arange(PARITY_BATCH))
+    log(f"[amp_symbol] convert_model(resnet_v1_symbol): {card[2]} amp_cast "
+        f"nodes, {card[3]} bf16 parameters; Module.forward inference at "
+        f"batch {PARITY_BATCH}, output {card[1]}; 3 CPU runs in "
+        f"{cpu_s:.1f} s")
+    check(card[1] == "float32" and card[2] > 0 and card[3] > 0,
+          "[amp_symbol] the converted model did not run in bf16")
+    amp_held("[amp_symbol]", "softmax outputs", card[0], ref[0], again[0],
+             fp32[0])
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -2168,6 +2652,23 @@ def main():
         phase_nd_pretrain(fa, card, step_ms, peak)
     phase_module_parity(bs)
     bn["module_launches"] = phase_module(bs, card, train_ms, train_peak)
+    # slice 9: mixed precision
+    train["amp_parity_launches"] = phase_amp_pretrain_parity(fa)
+    amp_launches, amp_calls, amp_ms, amp_peak = phase_pretrain(
+        fa, card, amp_on=True)
+    train["amp_launches"], train["amp_backward_calls"] = amp_launches, \
+        amp_calls
+    log(f"[amp_pretrain] AMP step {amp_ms:.3f} ms against phase 11's fp32 "
+        f"{step_ms:.3f} ms ({step_ms / amp_ms:.2f}x); peak "
+        f"{amp_peak / 2**30:.3f} GiB against {peak / 2**30:.3f} GiB")
+    phase_amp_train_parity(bs, path)
+    bn["amp_launches"], _, amp_train_ms, amp_train_peak = phase_train(
+        bs, path, card, amp_on=True)
+    log(f"[amp_train] AMP step {amp_train_ms:.3f} ms against phase 9's fp32 "
+        f"{train_ms:.3f} ms ({train_ms / amp_train_ms:.2f}x); peak "
+        f"{amp_train_peak / 2**30:.3f} GiB against "
+        f"{train_peak / 2**30:.3f} GiB")
+    bn["fp16_launches"] = phase_fp16_and_symbolic(bs, path, card)
     print(json.dumps({"kernels": [record, rtc_record, bn]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

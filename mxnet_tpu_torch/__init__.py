@@ -9,7 +9,9 @@ table (``ops/``).  Training runs through ``mx.autograd`` (on
 (SGD, Adam) and ``mx.lr_scheduler``.  The symbolic path is ``mx.sym``
 (graphs over the same op table), the ``Executor``, ``mx.kv`` (the local
 store), ``mx.io``, ``mx.metric``, ``mx.init``, ``mx.callback``,
-``mx.model`` and ``mx.mod.Module``.  The package imports neither JAX nor
+``mx.model`` and ``mx.mod.Module``.  Mixed precision is
+``mx.contrib.amp`` (bf16 on the tensor cores, its loss scaler) with
+multi-precision SGD for fp16 weights.  The package imports neither JAX nor
 ``mxnet_tpu``.  Entry points run on the GPU unless the caller asks for the
 CPU (``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``).
 """
@@ -19,6 +21,7 @@ from . import random, rtc, serving  # noqa: F401
 from . import telemetry  # noqa: F401
 from . import callback, executor, io, kvstore, metric, model  # noqa: F401
 from . import module, symbol  # noqa: F401
+from . import contrib  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import module as mod  # noqa: F401

@@ -13,6 +13,15 @@ renamed.  Checkpoint files (``model.save_checkpoint``,
 ``Module.save_checkpoint``) are MXNet's format in both packages and load
 in either with ``model.load_checkpoint`` or ``Module.load``.
 
+Low precision: float16 crosses as float16.  numpy has no bfloat16 (the
+JAX package's arrays carry ``ml_dtypes``' type, whose ``dtype.name`` is
+``"bfloat16"``), so a bf16 value crosses as its exact float32 values and
+is cast back on arrival: ``bert_state_dict_from_gluon`` gives a bf16
+tensor, ``module_params`` float32 arrays that ``Module.set_params`` casts
+to the bound arrays' dtypes, and ``load_from_gluon`` reads the JAX
+package's ``.params`` file, which holds bf16 as float32, with
+``cast_dtype=True``.
+
 ``bert_state_dict_from_gluon`` takes a JAX ``BERTModel``'s
 ``collect_params()`` as numpy arrays (``{name: p.data().asnumpy()}``), strips
 the net's own ``prefix`` (``bertmodel0_``; its counter depends on how many
@@ -35,15 +44,31 @@ def load_from_gluon(gluon_block, port_block, filename):
     ``save_parameters`` and load them into ``port_block``; deferred shapes
     in the port take the file's.  Returns ``port_block``."""
     gluon_block.save_parameters(str(filename))
-    port_block.load_parameters(str(filename))
+    port_block.load_parameters(str(filename), cast_dtype=True)
     return port_block
+
+
+def _host_array(value):
+    """``value`` as numpy, a bf16 one as its exact float32 values."""
+    a = np.asarray(value)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _tensor(value):
+    """A float tensor of ``value``: float16 stays float16, bfloat16 is
+    carried as float32 and cast back, anything else becomes float32."""
+    a = np.asarray(value)
+    if a.dtype == np.float16:
+        return torch.from_numpy(a.copy())
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t
 
 def module_params(module):
     """``(arg_params, aux_params)`` of a bound, initialised Module of either
     package, as ``{name: numpy array}`` on the host."""
     arg_params, aux_params = module.get_params()
-    return ({k: np.asarray(v.asnumpy()) for k, v in arg_params.items()},
-            {k: np.asarray(v.asnumpy()) for k, v in aux_params.items()})
+    return ({k: _host_array(v.asnumpy()) for k, v in arg_params.items()},
+            {k: _host_array(v.asnumpy()) for k, v in aux_params.items()})
 
 # Gluon name (prefix stripped) -> port state-dict key.  The norms are
 # positional inside their scope: the model's first LayerNorm is the
@@ -86,8 +111,7 @@ def bert_state_dict_from_gluon(params, prefix):
         for pattern, target in _BERT_RULES:
             m = re.fullmatch(pattern, rest)
             if m:
-                out[m.expand(target)] = torch.from_numpy(
-                    np.array(value, dtype=np.float32))
+                out[m.expand(target)] = _tensor(value)
                 break
         else:
             raise KeyError(f"no port parameter for {name!r}")

@@ -155,6 +155,19 @@ class HybridBlock(nn.Module):
                 for name, t in self._collect_params_with_prefix().items()
                 if pattern is None or pattern.match(name)}
 
+    def cast(self, dtype):
+        """Cast every parameter and buffer (running statistics included)
+        and their gradients to ``dtype`` (``mxnet_tpu/gluon/block.py:369``,
+        ``Parameter.cast``); a deferred one takes ``dtype`` when it
+        materialises.  A layer may keep another dtype for its own
+        (``_param_dtype``: BatchNorm stays fp32 under fp16)."""
+        params = self.collect_params()          # Gluon names made first
+        by_tensor = {id(p._data): p for p in params.values()}
+        for module in self.modules():
+            own = getattr(module, "_param_dtype", None)
+            for _, t in _own_state(module):
+                by_tensor[id(t)].cast(dtype if own is None else own(dtype))
+
     def save_parameters(self, filename):
         """Write every parameter and buffer to an MXNet ``.params`` file
         under its structural name (``mxnet_tpu/gluon/block.py:252``)."""
@@ -167,11 +180,13 @@ class HybridBlock(nn.Module):
         serialization.save(filename,
                            {k: v.detach() for k, v in params.items()})
 
-    def load_parameters(self, filename):
+    def load_parameters(self, filename, cast_dtype=False):
         """Load a file written by ``save_parameters`` (this package's or the
         JAX package's; ``mxnet_tpu/gluon/block.py:276``).  Names must match
         exactly.  Each value lands on its parameter's device; a deferred
-        parameter takes the file's shape there.  Dtypes must match."""
+        parameter takes the file's shape there.  Dtypes must match unless
+        ``cast_dtype``, which casts each value to its parameter's dtype
+        (the JAX package's ``dtype_source="current"``)."""
         loaded = serialization.load(filename)
         if not isinstance(loaded, dict):
             raise ValueError(f"{filename} holds unnamed arrays")
@@ -186,6 +201,8 @@ class HybridBlock(nn.Module):
         with torch.inference_mode(False), torch.no_grad():
             for name, t in params.items():
                 value = loaded[name]
+                if cast_dtype:
+                    value = value.to(t.dtype)
                 if value.dtype != t.dtype:
                     raise TypeError(f"{name}: file has {value.dtype}, the "
                                     f"parameter is {t.dtype}")

@@ -5,12 +5,15 @@ training slice needs): ``L2Loss``, ``L1Loss`` and
 Each returns one loss per sample: the mean over every axis but
 ``batch_axis``.  ``autograd.backward`` of that vector (ones as head
 gradients) and ``Trainer.step(batch_size)`` (gradients scaled by
-``1 / batch_size``) give the batch mean's update, as in MXNet.
+``1 / batch_size``) give the batch mean's update, as in MXNet.  Under AMP
+the mean, the ``log_softmax`` and the dense label's ``sum`` take float32,
+as the JAX package's ``F.mean``, ``F.log_softmax`` and ``F.sum`` do.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.registry import amp_inputs
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
@@ -39,6 +42,7 @@ class Loss(HybridBlock):
         self._batch_axis = batch_axis
 
     def _batch_mean(self, loss):
+        loss, = amp_inputs("mean", loss)
         axes = [a for a in range(loss.dim())
                 if a != self._batch_axis % loss.dim()]
         return loss.mean(dim=axes) if axes else loss
@@ -85,13 +89,14 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
+            pred, = amp_inputs("log_softmax", pred)
             pred = torch.log_softmax(pred, self._axis)
         if self._sparse_label:
             idx = label.long().clamp(0, pred.shape[self._axis] - 1)
             loss = -pred.gather(self._axis, idx.unsqueeze(self._axis))
         else:
-            loss = -(pred * label.reshape(pred.shape)).sum(
-                self._axis, keepdim=True)
+            prod, = amp_inputs("sum", pred * label.reshape(pred.shape))
+            loss = -prod.sum(self._axis, keepdim=True)
         return self._batch_mean(
             _apply_weighting(loss, self._weight, sample_weight))
 

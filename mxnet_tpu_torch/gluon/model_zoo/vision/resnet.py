@@ -61,8 +61,9 @@ class BasicBlockV1(HybridBlock):
             self.downsample = None
 
     def forward(self, x):
+        out = self.body(x)            # before the shortcut, as in JAX
         residual = x if self.downsample is None else self.downsample(x)
-        return _relu(residual + self.body(x))
+        return _relu(residual + out)
 
 
 class BottleneckV1(HybridBlock):
@@ -92,8 +93,9 @@ class BottleneckV1(HybridBlock):
             self.downsample = None
 
     def forward(self, x):
+        out = self.body(x)            # before the shortcut, as in JAX
         residual = x if self.downsample is None else self.downsample(x)
-        return _relu(self.body(x) + residual)
+        return _relu(out + residual)
 
 
 class BasicBlockV2(HybridBlock):

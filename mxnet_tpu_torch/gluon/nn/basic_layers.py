@@ -3,7 +3,10 @@
 Parameters are allocated on ``device`` at construction and filled by
 ``HybridBlock.initialize``.  ``Dense(in_units=0)`` and
 ``BatchNorm(in_channels=0)`` defer their shapes to the first forward or to
-``load_parameters``, as Gluon does.
+``load_parameters``, as Gluon does.  Each layer that the JAX package runs
+through an op on one of AMP's lists (``FullyConnected``, ``LayerNorm``,
+``BatchNorm``) passes its inputs through AMP's policy
+(``ops.registry.amp_inputs``) first.
 """
 from __future__ import annotations
 
@@ -14,7 +17,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ... import autograd
+from ...base import torch_dtype
 from ...ops import nn as ops
+from ...ops.registry import amp_inputs
 from ..block import HybridBlock, is_deferred
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
@@ -83,7 +88,8 @@ class Dense(HybridBlock):
                 else x.shape[-1]
             self._materialize({"weight": (self._units, in_units)},
                               x.device)
-        y = ops.fully_connected(x, self.weight, self.bias, self._flatten)
+        x, w, b = amp_inputs("FullyConnected", x, self.weight, self.bias)
+        y = ops.fully_connected(x, w, b, self._flatten)
         return y if self._act_type is None else ops.activation(
             y, self._act_type)
 
@@ -128,8 +134,8 @@ class LayerNorm(HybridBlock):
                                              device=device))
 
     def forward(self, x):
-        return ops.layer_norm(x, self.gamma, self.beta, self._axis,
-                              self._epsilon)
+        x, gamma, beta = amp_inputs("LayerNorm", x, self.gamma, self.beta)
+        return ops.layer_norm(x, gamma, beta, self._axis, self._epsilon)
 
 
 class BatchNorm(HybridBlock):
@@ -160,14 +166,22 @@ class BatchNorm(HybridBlock):
         self.register_buffer("running_mean", _buffer(shape, dtype, device))
         self.register_buffer("running_var", _buffer(shape, dtype, device))
 
+    @staticmethod
+    def _param_dtype(dtype):
+        """``cast("float16")`` keeps BatchNorm's parameters and statistics
+        in fp32 (``mxnet_tpu/gluon/nn/basic_layers.py:225-228``)."""
+        return torch.float32 if torch_dtype(dtype) is torch.float16 \
+            else dtype
+
     def forward(self, x):
         if is_deferred(self.gamma):
             c = (x.shape[self._axis],)
             self._materialize({"gamma": c, "beta": c, "running_mean": c,
                                "running_var": c}, x.device)
-        args = (x, self.gamma, self.beta, self.running_mean,
-                self.running_var, self._epsilon, self._fix_gamma,
-                self._axis)
+        # the running statistics are auxiliary inputs: AMP never casts them
+        x, gamma, beta = amp_inputs("BatchNorm", x, self.gamma, self.beta)
+        args = (x, gamma, beta, self.running_mean, self.running_var,
+                self._epsilon, self._fix_gamma, self._axis)
         if self._use_global_stats or not autograd.is_training():
             return ops.batch_norm(*args)
         out, mean, var = ops.batch_norm(*args, training=True)

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ...ops import nn as ops
+from ...ops.registry import amp_inputs
 from ..block import HybridBlock, is_deferred
 from .activations import Activation
 from .basic_layers import _param
@@ -53,8 +54,9 @@ class _Conv(HybridBlock):
             self._materialize(
                 {"weight": (self._channels, x.shape[1] // self._groups)
                  + self._kernel}, x.device)
-        y = ops.convolution(x, self.weight, self.bias, self._stride,
-                            self._pad, self._dilate, self._groups)
+        x, w, b = amp_inputs("Convolution", x, self.weight, self.bias)
+        y = ops.convolution(x, w, b, self._stride, self._pad, self._dilate,
+                            self._groups)
         return y if self.act is None else self.act(y)
 
 

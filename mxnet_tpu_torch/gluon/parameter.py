@@ -23,6 +23,7 @@ import weakref
 import torch
 
 from .. import autograd
+from ..base import torch_dtype
 from ..context import as_device
 from ..initializer import Uniform
 
@@ -140,6 +141,19 @@ class Parameter:
         data = self._check()
         if data.grad is not None:
             data.grad.zero_()
+
+    def cast(self, dtype):
+        """Cast the value and its gradient buffer to ``dtype`` in place of
+        the old ones (``mxnet_tpu/gluon/parameter.py:425``); the tensor
+        object, and so the block's attribute, stays the same."""
+        self._dtype = torch_dtype(dtype)
+        t = self._data
+        if t is None:
+            return
+        with torch.no_grad():
+            t.data = t.data.to(self._dtype)
+            if t.grad is not None:
+                t.grad = t.grad.to(self._dtype)
 
     def set_data(self, value):
         """Overwrite the value in place, keeping the tensor."""

@@ -5,6 +5,13 @@ With one device there is nothing to reduce: ``allreduce_grads`` does no
 work and no kvstore is made (multi-device training is ROADMAP queue 10).
 ``step`` records the ``trainer.step`` and ``trainer.update`` spans and the
 ``trainer.steps`` counter on the telemetry bus when it is enabled.
+``contrib.amp.init_trainer`` gives a Trainer a loss scaler
+(``_amp_loss_scaler``) and keeps its ``_scale`` as ``_amp_original_scale``;
+``amp.scale_loss`` then sets ``_scale`` to that over the loss scale, so
+``step``'s ``rescale_grad = _scale / batch_size`` unscales the gradients.
+``save_states``/``load_states`` write and read the optimizer and its
+states (the JAX package's durability layer, atomic writes and retries, is
+not ported).
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ class Trainer:
         self._params = list(params)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        self._amp_loss_scaler = None
+        self._amp_original_scale = self._scale
         param_dict = dict(enumerate(self._params))
         if isinstance(optimizer, opt.Optimizer):
             if optimizer_params:
@@ -92,3 +101,19 @@ class Trainer:
                    if param.grad_req != "null"]
         if updates:
             self._updater(*(list(col) for col in zip(*updates)))
+
+    def save_states(self, fname):
+        """Write the optimizer and its states to ``fname``
+        (``mxnet_tpu/gluon/trainer.py:272``; ``Updater.get_states`` with
+        the optimizer, tensors on the CPU)."""
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Read what :meth:`save_states` wrote; the loaded optimizer takes
+        this Trainer's parameters (``mxnet_tpu/gluon/trainer.py:312``), and
+        each state moves to its weight's device at its next update."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))

@@ -7,6 +7,10 @@ Same layers, same post-LN encoder, same two attention routes:
 - a ``valid_mask`` or attention dropout takes the dense route, with an
   additive -1e30 on padded keys.
 
+Under AMP the attention products and the masked-LM decoder's product take
+the policy of the ops the JAX package calls there (``batch_dot``, ``dot``:
+bf16) and the dense route's softmax that of ``softmax`` (fp32).
+
 The route rule is the reference's (``blockwise_ok`` reads the dropout rate
 set at construction, not the training mode), so both packages take the same
 route for the same model.  The sequence-parallel route is not ported.
@@ -21,6 +25,7 @@ from ..context import as_device
 from ..gluon import HybridBlock, nn
 from ..ops import contrib
 from ..ops import nn as ops
+from ..ops.registry import amp_inputs
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "BERTEncoder", "BERTModel", "BERTClassifier", "get_bert_model"]
@@ -56,13 +61,17 @@ class MultiHeadAttention(HybridBlock):
         if mask is None and not self.dropout._rate:
             ctx = contrib.flash_attention(q, k, v, scale=1.0)
         else:
-            scores = torch.matmul(q, k.transpose(-1, -2))    # (B, H, T, T)
+            qd, kd = amp_inputs("batch_dot", q, k)
+            scores = torch.matmul(qd, kd.transpose(-1, -2))  # (B, H, T, T)
             if mask is not None:
-                # mask: (B, T), 1 = valid -> additive -1e30 on padded keys
-                neg = (1.0 - mask.to(scores.dtype)) * -1e30
+                # mask: (B, T), 1 = valid -> additive -1e30 on padded keys,
+                # in the mask's float type as the JAX package adds it
+                neg = (1.0 - mask.float()) * -1e30
                 scores = scores + neg[:, None, None, :]
+            scores, = amp_inputs("softmax", scores)
             attn = self.dropout(ops.softmax(scores, axis=-1))
-            ctx = torch.matmul(attn, v)
+            attn, vd = amp_inputs("batch_dot", attn, v)
+            ctx = torch.matmul(attn, vd)
         return self.proj(ctx.transpose(1, 2).reshape(b, t, self._units))
 
 
@@ -178,8 +187,8 @@ class BERTModel(HybridBlock):
             picked = torch.gather(seq_out, 1, idx)          # (B, M, C)
             h = self.decoder_norm(self.decoder_act(
                 self.decoder_transform(picked)))
-            outputs.append(torch.matmul(h, self.word_embed.weight.t())
-                           + self.decoder_bias)
+            hd, w = amp_inputs("dot", h, self.word_embed.weight)
+            outputs.append(torch.matmul(hd, w.t()) + self.decoder_bias)
         if self.use_classifier and self.use_pooler:
             outputs.append(self.nsp_classifier(outputs[1]))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]

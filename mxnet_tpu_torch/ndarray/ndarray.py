@@ -24,10 +24,12 @@ What departs from a plain translation, and why:
   result, as the JAX package rebinds (``:316-328``): torch refuses an
   in-place op on a leaf that requires grad, and would refuse the backward
   of a graph whose saved tensor was written.
-- No engine: there is no lazy bulking, eager-jit cache, sanitizer fence,
-  AMP hook or operand capture (ROADMAP.md).  ``wait_to_read`` and
-  ``asnumpy`` synchronise the tensor's stream only; ``waitall`` every
-  device.
+- No engine: there is no lazy bulking, eager-jit cache, sanitizer fence
+  or operand capture (ROADMAP.md).  ``wait_to_read`` and ``asnumpy``
+  synchronise the tensor's stream only; ``waitall`` every device.
+- AMP: its cast policy (``ops.registry.amp_policy``, set by
+  ``contrib.amp.init``) rewrites an op's inputs in ``invoke``, as the JAX
+  package's ``_AMP_HOOK`` does.
 - Integer widths: int64 stays int64 (MXNet 1.5 keeps it; the JAX package
   runs without x64 and makes it int32).
 - ``dtype`` is a numpy dtype, except bfloat16, which numpy lacks: it is
@@ -561,6 +563,8 @@ def invoke(op, nd_inputs, attrs, out=None):
         # optional array inputs passed by keyword (``sequence_length=``)
         attrs = {k: (v._data if isinstance(v, NDArray) else v)
                  for k, v in attrs.items()}
+    if _reg.amp_policy is not None:
+        raw = _reg.amp_policy((op.name,) + op.aliases, raw)
     result = op.fn(*raw, **attrs)
     single = not isinstance(result, (tuple, list))
     outs = [_own(r, raw) for r in ([result] if single else result)]

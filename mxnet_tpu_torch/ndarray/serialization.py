@@ -33,10 +33,16 @@ _FLAG_OF = {np.dtype(v): k for k, v in _TYPE_FLAGS.items()}
 
 
 def _as_numpy(t):
+    """``t`` as a numpy array with a type flag.  bfloat16, which has no
+    flag, is written as its exact float32 values (flag 0), as the JAX
+    package's writer does (``mxnet_tpu/ndarray/ndarray.py:981-995``); it
+    reads back as float32."""
     if isinstance(t, torch.Tensor):
-        if t.dtype in (torch.bfloat16, torch.bool) or t.is_complex():
+        if t.dtype is torch.bool or t.is_complex():
             raise TypeError(f"the .params format has no type flag for "
                             f"{t.dtype}")
+        if t.dtype is torch.bfloat16:
+            t = t.float()
         t = t.detach().cpu().numpy()
     a = np.asarray(t, order="C")       # keeps 0-d arrays 0-d
     if np.dtype(a.dtype) not in _FLAG_OF:

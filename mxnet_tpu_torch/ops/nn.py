@@ -31,11 +31,19 @@ __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
+_LOW = (torch.bfloat16, torch.float16)
+
+
 def fully_connected(data, weight, bias=None, flatten=True):
     """``y = x W^T + b`` with weight layout ``(num_hidden, in_dim)``;
-    ``flatten`` folds every axis after the first into the input."""
+    ``flatten`` folds every axis after the first into the input.  In bf16
+    and fp16 the bias is added to the rounded product, as the JAX op
+    (``mxnet_tpu/ops/nn.py:33-43``) and MXNet's own layer add it; in fp32
+    the fused call rounds once, the same to within fp32 rounding."""
     if flatten:
         data = data.reshape(data.shape[0], -1)
+    if bias is not None and data.dtype in _LOW:
+        return F.linear(data, weight) + bias
     return F.linear(data, weight, bias)
 
 
@@ -81,9 +89,11 @@ def convolution(data, weight, bias=None, stride=None, pad=None, dilate=None,
     ``(num_filter, C/num_group, *kernel)``, symmetric zero padding."""
     nd = data.dim() - 2
     _channel_first(layout, nd)
-    return _CONV[nd](data, weight, bias, _tuple(stride, nd, 1),
-                     _tuple(pad, nd, 0), _tuple(dilate, nd, 1),
-                     int(num_group))
+    late = bias is not None and data.dtype in _LOW   # as fully_connected
+    out = _CONV[nd](data, weight, None if late else bias,
+                    _tuple(stride, nd, 1), _tuple(pad, nd, 0),
+                    _tuple(dilate, nd, 1), int(num_group))
+    return out + bias.reshape((-1,) + (1,) * nd) if late else out
 
 
 def _pool_pads(shape, kernel, stride, pad, convention):

@@ -12,6 +12,21 @@ from typing import Callable, Dict, Optional
 
 _OP_TABLE: Dict[str, "OpDef"] = {}
 
+# AMP's cast policy (``contrib/amp/amp.py``): None while AMP is off, else
+# ``policy(names, tensors) -> tensors``.  ``ndarray.invoke`` applies it to
+# every op call, and the gluon layers, losses and models at each direct
+# torch call where the JAX package dispatches a listed op; the Executor
+# does not, as the JAX package's symbolic executor does not.
+amp_policy = None
+
+
+def amp_inputs(name, *tensors):
+    """``tensors`` (None entries kept) as AMP casts the inputs of op
+    ``name``; unchanged while AMP is off."""
+    if amp_policy is None:
+        return tensors
+    return amp_policy((name,), tensors)
+
 
 class OpDef:
     """A registered op: canonical ``name``, the function ``fn``, its

@@ -8,9 +8,13 @@ Adam's mean and variance) of one device and dtype, updated by a few
 ``torch._foreach_*`` calls (one launch each for up to ``opt.aggregate_num``
 tensors) that repeat the operations of ``ops/optimizer_ops.py`` in the same
 order, so the numbers are those of the per-parameter path, bit for bit.
+Under ``multi_precision`` the fp16 weights form groups of their own
+(``mxnet_tpu/optimizer/aggregate.py:483-553``): the rule runs on their
+fp32 master copies with the gradients in fp32, and each weight then takes
+its master's value, as ``update_multi_precision`` does one at a time.
 Members that cannot join a group (another optimizer class, a gradient on
-another device or of another dtype, a tensor already in the group) take
-the per-parameter path.
+another device or of another dtype, a bare fp16 weight, a tensor already
+in the group) take the per-parameter path.
 """
 from __future__ import annotations
 
@@ -69,16 +73,38 @@ _RULES = {SGD: _sgd_group, Adam: _adam_group}
 
 
 def _tensors(state):
-    """The tensors of a state: none, one buffer, or a tuple (Adam's)."""
+    """The tensors of a state: none, one buffer, or a tuple (Adam's, or a
+    master copy and its inner state)."""
     if state is None:
         return ()
-    return (state,) if isinstance(state, torch.Tensor) else tuple(state)
+    if isinstance(state, torch.Tensor):
+        return (state,)
+    return tuple(t for s in state for t in _tensors(s))
 
 
-def _group_key(weight, grad, state):
+def _group_key(opt, weight, grad, state):
+    """(device, dtype, multi-precision, has a state) of a member that a
+    group can take, else None."""
     if grad.device != weight.device or grad.dtype != weight.dtype:
         return None
-    return weight.device, weight.dtype, state is not None
+    if weight.dtype == torch.float16:
+        # fp16 joins a group only through its fp32 master copy
+        if not (opt.multi_precision and isinstance(state, tuple)
+                and len(state) == 2 and isinstance(state[0], torch.Tensor)
+                and state[0].dtype == torch.float32):
+            return None
+        return weight.device, weight.dtype, True, state[1] is not None
+    return weight.device, weight.dtype, False, state is not None
+
+
+def _mp_group(rule, opt, indices, weights, grads, states):
+    """``rule`` on the fp32 master copies, then each fp16 weight takes its
+    master's value."""
+    masters = [s[0] for s in states]
+    inner = None if states[0][1] is None else [s[1] for s in states]
+    rule(opt, indices, masters, [g.float() for g in grads], inner)
+    for w, m in zip(weights, masters):
+        w.copy_(m)
 
 
 @torch.no_grad()
@@ -88,18 +114,23 @@ def update_multi(opt, indices, weights, grads, states):
     rule = _RULES.get(type(opt))
     groups, fallback, taken = {}, [], set()
     for pos, (w, g, s) in enumerate(zip(weights, grads, states)):
-        key = None if rule is None else _group_key(w, g, s)
+        key = None if rule is None else _group_key(opt, w, g, s)
         ptrs = {w.data_ptr()} | {t.data_ptr() for t in _tensors(s)}
         if key is None or ptrs & taken:
             fallback.append(pos)
             continue
         taken |= ptrs
         groups.setdefault(key, []).append(pos)
-    for (_, _, has_state), members in groups.items():
+    for (_, _, mp, has_state), members in groups.items():
         for lo in range(0, len(members), opt.aggregate_num):
             chunk = members[lo:lo + opt.aggregate_num]
-            rule(opt, [indices[p] for p in chunk],
-                 [weights[p] for p in chunk], [grads[p] for p in chunk],
-                 [states[p] for p in chunk] if has_state else None)
+            args = ([indices[p] for p in chunk], [weights[p] for p in chunk],
+                    [grads[p] for p in chunk])
+            if mp:
+                _mp_group(rule, opt, *args, [states[p] for p in chunk])
+            else:
+                rule(opt, *args,
+                     [states[p] for p in chunk] if has_state else None)
     for pos in fallback:
-        opt.update(indices[pos], weights[pos], grads[pos], states[pos])
+        opt.update_multi_precision(indices[pos], weights[pos], grads[pos],
+                                   states[pos])

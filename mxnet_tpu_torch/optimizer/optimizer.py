@@ -1,6 +1,7 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``, the part
 the training slices need): the ``Optimizer`` base with its registry,
-per-parameter multipliers and learning-rate scheduler, ``SGD``, ``Adam``,
+per-parameter multipliers, learning-rate scheduler and ``multi_precision``
+route (an fp32 master copy of each fp16 weight), ``SGD``, ``Adam``,
 ``create``, ``Updater`` and ``get_updater``.
 
 Updates are in place on the weight and state tensors
@@ -31,7 +32,13 @@ class Optimizer:
     becomes ``learning_rate``.
 
     ``aggregate_num`` caps the parameters of one grouped update; 1 or less
-    keeps the per-parameter path."""
+    keeps the per-parameter path.
+
+    ``multi_precision`` (``mxnet_tpu/optimizer/optimizer.py:65-135``): an
+    fp16 weight gets an fp32 master copy in its state, the update runs on
+    the master with the gradient in fp32, and the weight takes the
+    master's value.  It acts on fp16 weights only; an fp16 weight without
+    it warns when its state is made."""
 
     opt_registry = {}
 
@@ -52,8 +59,10 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 begin_num_update=0, param_dict=None):
+                 begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
+        self.multi_precision = multi_precision
         self.clip_gradient = clip_gradient
         self.aggregate_num = 256
         self.lr, self.wd = learning_rate, wd
@@ -71,11 +80,49 @@ class Optimizer:
         self.set_lr_mult({})
         self.set_wd_mult({})
 
+    def __getstate__(self):
+        # a Trainer's Parameters are not pickled with the optimizer:
+        # ``Trainer.load_states`` attaches the loading Trainer's own
+        state = self.__dict__.copy()
+        state["param_dict"] = {}
+        return state
+
     def create_state(self, index, weight):
         """Auxiliary state for ``weight`` (None when there is none)."""
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def _wants_master_weight(self, weight):
+        """True for an fp16 weight under ``multi_precision``; a bare fp16
+        weight warns, as the JAX package's does."""
+        if weight.dtype != torch.float16:
+            return False
+        if self.multi_precision:
+            return True
+        warnings.warn("Accumulating with float16 in optimizer can lead to "
+                      "poor accuracy or slow convergence. "
+                      "Consider using multi_precision=True option of the "
+                      "optimizer")
+        return False
+
+    def create_state_multi_precision(self, index, weight):
+        """:meth:`create_state`, or for an fp16 weight under
+        ``multi_precision`` ``(fp32 master copy, create_state(master))``."""
+        if not self._wants_master_weight(weight):
+            return self.create_state(index, weight)
+        master = weight.detach().to(torch.float32, copy=True)
+        return master, self.create_state(index, master)
+
+    @torch.no_grad()
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update`, or for an fp16 weight under ``multi_precision``
+        the update of its master copy, which the weight then takes."""
+        if not (self.multi_precision and weight.dtype == torch.float16):
+            return self.update(index, weight, grad, state)
+        master, inner = state
+        self.update(index, master, grad.float(), inner)
+        weight.copy_(master)
 
     def update_multi(self, indices, weights, grads, states):
         """The grouped update over parallel lists (``aggregate.py``)."""
@@ -153,7 +200,9 @@ register = Optimizer.register
 class SGD(Optimizer):
     """SGD, with momentum when ``momentum > 0``
     (``mxnet_tpu/optimizer/optimizer.py:238``): the state is the momentum
-    buffer, and ``lr`` is folded into it as MXNet's kernel does."""
+    buffer, and ``lr`` is folded into it as MXNet's kernel does.  Under
+    ``multi_precision`` an fp16 weight takes ``mp_sgd_update`` /
+    ``mp_sgd_mom_update``."""
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
@@ -165,11 +214,27 @@ class SGD(Optimizer):
         return None
 
     def update(self, index, weight, grad, state):
+        self._update_impl(index, weight, grad, state, False)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        self._update_impl(index, weight, grad, state,
+                          self.multi_precision
+                          and weight.dtype == torch.float16)
+
+    def _update_impl(self, index, weight, grad, state, multi_precision):
         self._update_count(index)
         kwargs = dict(lr=self._get_lr(index), wd=self._get_wd(index),
                       rescale_grad=self.rescale_grad,
                       clip_gradient=self.clip_gradient)
-        if state is not None:
+        if multi_precision:
+            master, mom = state
+            if mom is not None:
+                optimizer_ops.mp_sgd_mom_update(weight, grad, mom, master,
+                                                momentum=self.momentum,
+                                                **kwargs)
+            else:
+                optimizer_ops.mp_sgd_update(weight, grad, master, **kwargs)
+        elif state is not None:
             optimizer_ops.sgd_mom_update(weight, grad, state,
                                          momentum=self.momentum, **kwargs)
         else:
@@ -247,7 +312,8 @@ class Updater:
         grads = list(grad) if batched else [grad]
         for idx, w in zip(indices, weights):
             if idx not in self.states:
-                self.states[idx] = self.optimizer.create_state(idx, w)
+                self.states[idx] = \
+                    self.optimizer.create_state_multi_precision(idx, w)
             elif self._loaded:
                 self.states[idx] = _state_to(self.states[idx], w.device)
         states = [self.states[idx] for idx in indices]
@@ -255,7 +321,7 @@ class Updater:
             self.optimizer.update_multi(indices, weights, grads, states)
         else:
             for idx, w, g, s in zip(indices, weights, grads, states):
-                self.optimizer.update(idx, w, g, s)
+                self.optimizer.update_multi_precision(idx, w, g, s)
 
     def get_states(self, dump_optimizer=False):
         """The states (and with ``dump_optimizer`` the optimizer) as

@@ -810,7 +810,7 @@ AUX_INPUTS_BY_NAME = {"BatchNorm": {"moving_mean", "moving_var"}}
 
 # ops a parameter may sit behind without its shape changing
 _SHAPE_PRESERVING = {"Cast", "cast", "_copy", "identity", "BlockGrad",
-                     "stop_gradient"}
+                     "stop_gradient", "amp_cast"}
 
 
 def _infer_layer_param_shapes(node, out_specs, var_spec):

@@ -513,3 +513,19 @@ RANDOM_CASES = [
     ("_sample_multinomial", (np.array([[0.2, 0.5, 0.3]], "float32"),), {},
      1.1, 0.49),
 ]
+
+# AMP's overflow scans (one output, 1.0 when every input is finite); one in
+# each half of the list, so that no earlier case moves between the two
+# test files that split it
+OP_CASES.insert(len(OP_CASES) // 2, Case(
+    "all_finite", (("n", S), ("n", (5,)), ("n", S3)), grad=False,
+    exact=True))
+OP_CASES.append(Case("multi_all_finite", (("n", S), ("n", (5,))),
+                     {"num_arrays": 2}, grad=False, exact=True))
+UPDATE_OPS += [
+    Case("mp_sgd_update", (("n", S), ("n", S), ("n", S)),
+         {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5}, grad=False),
+    Case("mp_sgd_mom_update", (("n", S), ("n", S), ("n", S), ("n", S)),
+         {"lr": 0.1, "momentum": 0.9, "wd": 0.01, "clip_gradient": 0.8},
+         grad=False),
+]

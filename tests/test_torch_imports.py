@@ -55,7 +55,10 @@ def test_port_imports_with_jax_blocked():
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
             "mxnet_tpu_torch.module, mxnet_tpu_torch.io, "
             "mxnet_tpu_torch.metric, mxnet_tpu_torch.kvstore, "
-            "mxnet_tpu_torch.model, mxnet_tpu_torch.callback\n"
+            "mxnet_tpu_torch.model, mxnet_tpu_torch.callback, "
+            "mxnet_tpu_torch.contrib.amp, "
+            "mxnet_tpu_torch.contrib.amp.loss_scaler, "
+            "mxnet_tpu_torch.contrib.amp.lists\n"
             "s = mxnet_tpu_torch.sym.FullyConnected("
             "mxnet_tpu_torch.sym.var('data'), num_hidden=2)\n"
             "s.simple_bind(ctx=mxnet_tpu_torch.cpu(), data=(1, 3)).forward()\n"

@@ -313,8 +313,16 @@ def test_params_jax_writes_port_reads(tmp_path):
         np.testing.assert_array_equal(back[k].asnumpy(), v)
     with pytest.raises(ValueError, match="not an MXNet"):
         nd.load_frombuffer(b"\0" * 32)
+    # bfloat16 has no type flag: written as its exact float32 values, as
+    # the JAX package's writer does; bool has none either and is refused
+    bf16 = torch.tensor([1.5, -2.0 ** -9, 3e38], dtype=torch.bfloat16)
+    nd.save(str(path), [bf16])
+    back = nd.load(str(path))[0].asnumpy()
+    assert back.dtype == np.float32
+    np.testing.assert_array_equal(back, bf16.float().numpy())
+    assert jmx.nd.load(str(path))[0].dtype == np.float32
     with pytest.raises(TypeError, match="type flag"):
-        nd.save(str(path), [torch.ones(2, dtype=torch.bfloat16)])
+        nd.save(str(path), [torch.ones(2, dtype=torch.bool)])
 
 
 def test_params_reader_takes_legacy_and_sparse_records():
