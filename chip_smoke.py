@@ -160,6 +160,35 @@ Phases, in order; any failure exits non-zero:
    ``amp.convert_model`` of :func:`resnet_v1_symbol` through
    ``Module.forward``, inference at batch 8, card against CPU.
 
+20. bn-stats channels-last entry vs plain: the kernel's NHWC entry
+   (``mxt_bn_stats_cl``) at the nine NHWC BatchNorm geometries of
+   ResNet-50 at batch 32, fp32 and fp16, against its plain version (atol
+   2e-5, as phase 7) and, in fp32, against the NCHW entry on the same data
+   transposed (1e-6: the same pivot element, another summation order);
+   per geometry its time beside the plain version, ``torch.var_mean``
+   over (0, 1, 2) and the bound;
+21. NHWC parity: ResNet-50 v1 ``layout="NHWC"`` at full width and depth,
+   phase 6's weights transposed to (O, kh, kw, I) into a ``.params``
+   file: fp32 logits at batch 8 on the card against the CPU within 1e-4
+   of their max, the NCHW net on the card with the original weights the
+   same; then phase 8's parity in NHWC for 3 SGD steps, every launch on
+   the channels-last entry and no BatchNorm input copied;
+22. NHWC training: phase 9's run with the NHWC net, fp32 and under AMP,
+   beside phases 9 and 18 of the same call; 53 channels-last launches a
+   forward, 0 copies (a fail stops the run); a ``[profile]`` with the
+   NCHW<->NHWC transposes, copies and convolutions by kind.  The fp32
+   run is the channels-last entry's main path: its ``launches`` count it;
+23. the rest of the training loop: each of slice 10's optimizers (and
+   ``adamw_update``) on an MLP's parameters with seeded gradients, card
+   against CPU within 1e-5 of each tensor's max (SGLD by its noise's
+   moments), each grouped rule bit for bit its per-parameter update on
+   the card, every new loss with its input gradient and a
+   ``backward(create_graph=True)`` second derivative, card against CPU.
+
+Phase 1 also prints what a JPEG data path would find: whether ``cv2``,
+``PIL`` and ``torchvision`` import and ``g++ -ljpeg`` links (a report;
+it never fails the run).
+
 Phase 3 also holds and times the flash forward in bf16 at phase 11's
 (32, 12, 128, 64), the AMP path's shape, beside SDPA in bf16 and the bound
 on the bf16 tensor-core rate.
@@ -179,7 +208,7 @@ and of SDPA's forward plus backward (a yardstick the port never calls),
 beside the backward's bound.  Phase 3 holds and times the forward at phase
 11's shape too.
 
-Phases 4, 6, 9, 11, 17 and 18 print a ``[profile]`` breakdown of one
+Phases 4, 6, 9, 11, 17, 18 and 22 print a ``[profile]`` breakdown of one
 micro-batch or step.  The last two lines are the kernels' JSON record and
 the device line.
 """
@@ -213,6 +242,8 @@ BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
 RESNET50_BN = [(32, 64, 112, 112), (32, 64, 56, 56), (32, 256, 56, 56),
                (32, 128, 28, 28), (32, 512, 28, 28), (32, 256, 14, 14),
                (32, 1024, 14, 14), (32, 512, 7, 7), (32, 2048, 7, 7)]
+RESNET50_BN_NHWC = [(n, h, w, c) for n, c, h, w in RESNET50_BN]
+NHWC_PARITY_STEPS = 3
 TRAIN_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
 PARITY_BATCH, PARITY_STEPS = 8, 2
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 32, 3, 10
@@ -284,12 +315,13 @@ def attention_bound_ms(shape, dtype, causal=False, peak=None):
                                    else "operations")
 
 
-def bn_stats_bound_ms(shape, dtype):
-    """Least time for the statistics of an NCHW tensor: read it and the
-    pivot once, write mean and var; 3 operations an element."""
+def bn_stats_bound_ms(shape, dtype, axis=1):
+    """Least time for the statistics of a tensor over every axis but
+    ``axis`` (1 in NCHW, 3 in NHWC): read it and the pivot once, write
+    mean and var; 3 operations an element."""
     n = math.prod(shape)
     elem = torch.empty((), dtype=dtype).element_size()
-    by_bytes = (n * elem + 3 * shape[1] * 4) / HBM_BYTES_PER_S * 1e3
+    by_bytes = (n * elem + 3 * shape[axis] * 4) / HBM_BYTES_PER_S * 1e3
     by_ops = 3 * n / PEAK_FLOPS[torch.float32] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
@@ -306,7 +338,37 @@ def phase_environment():
         f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    log(f"[environment] data path: {json.dumps(data_path_libraries())}")
     return card
+
+
+def data_path_libraries():
+    """What the machine offers a JPEG data path: whether ``cv2``, ``PIL``
+    and ``torchvision`` import, and whether ``g++`` links a one-line
+    program against ``-ljpeg`` (in a temporary directory).  Reports; never
+    fails the run."""
+    import tempfile
+    found = {}
+    for mod in ("cv2", "PIL", "torchvision"):
+        try:
+            importlib.import_module(mod)
+            found[mod] = True
+        except Exception as e:                  # noqa: BLE001 (a report)
+            found[mod] = f"no ({type(e).__name__})"
+    with tempfile.TemporaryDirectory() as d:
+        src = Path(d) / "j.c"
+        src.write_text("#include <stdio.h>\n#include <jpeglib.h>\n"
+                       "int main(void) { struct jpeg_decompress_struct c; "
+                       "jpeg_create_decompress(&c); return 0; }\n")
+        try:
+            r = subprocess.run(["g++", "-x", "c++", str(src), "-o",
+                                str(Path(d) / "j"), "-ljpeg"],
+                               capture_output=True, text=True, timeout=60)
+            found["g++ -ljpeg"] = True if r.returncode == 0 else \
+                f"no ({(r.stderr.strip().splitlines() or ['?'])[-1][:120]})"
+        except (OSError, subprocess.SubprocessError) as e:
+            found["g++ -ljpeg"] = f"no ({type(e).__name__})"
+    return found
 
 
 def phase_build():
@@ -1053,10 +1115,10 @@ def no_plain_stats_on_cuda(bs):
     plain_on_cuda = []
     real_reference = bs._reference
 
-    def guarded_reference(x, pivot=None):
+    def guarded_reference(x, pivot=None, axis=1):
         if x.is_cuda:
             plain_on_cuda.append(tuple(x.shape))
-        return real_reference(x, pivot)
+        return real_reference(x, pivot, axis)
 
     bs._reference = guarded_reference
     try:
@@ -1111,20 +1173,31 @@ def _rel(a, b):
                 max(float(np.abs(b[k]).max()), 1e-30), k) for k in b)
 
 
-def phase_train_parity(bs, path):
-    """2 steps at batch 8 on the card against the CPU plain path, with 53
-    kernel launches per forward and no plain statistics on the card."""
+def _images(rng, batch, layout):
+    """A seeded batch of (3, 224, 224) images in ``layout``."""
+    x = rng.randn(batch, *IMAGE).astype("float32")
+    return x if layout == "NCHW" else np.ascontiguousarray(
+        x.transpose(0, 2, 3, 1))
+
+
+def phase_train_parity(bs, path, layout="NCHW", steps=PARITY_STEPS):
+    """``steps`` SGD steps at batch 8 on the card against the CPU plain
+    path, with 53 kernel launches per forward and no plain statistics on
+    the card; in NHWC (phase 21) all on the channels-last entry, with no
+    copy of a BatchNorm input."""
     from mxnet_tpu_torch.gluon.model_zoo import get_model
+    tag = "[train]" if layout == "NCHW" else "[nhwc]"
     rng = np.random.RandomState(2)
-    x = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
+    x = _images(rng, PARITY_BATCH, layout)
     y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
     perm = np.roll(np.arange(PARITY_BATCH), 3)
 
     def cpu_run(order):
-        net = get_model("resnet50_v1", classes=1000, device="cpu")
+        net = get_model("resnet50_v1", classes=1000, layout=layout,
+                        device="cpu")
         net.load_parameters(str(path))
         run = _train(net, torch.from_numpy(x[order]),
-                     torch.from_numpy(y[order]), PARITY_STEPS)
+                     torch.from_numpy(y[order]), steps)
         return [l[np.argsort(order)] for l in run[0]], run[1], run[2]
 
     t0 = time.perf_counter()
@@ -1132,63 +1205,73 @@ def phase_train_parity(bs, path):
     again = cpu_run(perm)
     cpu_s = time.perf_counter() - t0
 
-    net = get_model("resnet50_v1", classes=1000)       # the GPU
+    net = get_model("resnet50_v1", classes=1000, layout=layout)  # the GPU
     net.load_parameters(str(path))
     with no_plain_stats_on_cuda(bs):
         bs.bn_stats.launches = 0                 # the parity path starts
+        bs.bn_stats.launches_cl = bs.bn_stats.copies = 0
         card = _train(net, torch.from_numpy(x).cuda(),
-                      torch.from_numpy(y).cuda(), PARITY_STEPS)
+                      torch.from_numpy(y).cuda(), steps)
         torch.cuda.synchronize()
         launches = bs.bn_stats.launches          # the parity path ends
-    check(launches == BN_PER_FORWARD * PARITY_STEPS,
-          f"{launches} bn-stats launches for {PARITY_STEPS} training "
+        launches_cl, copies = bs.bn_stats.launches_cl, bs.bn_stats.copies
+    check(launches == BN_PER_FORWARD * steps,
+          f"{launches} bn-stats launches for {steps} training "
           f"forwards (want {BN_PER_FORWARD} each)")
-    log(f"[train] parity: 2 CPU plain runs of {PARITY_STEPS} steps at batch "
-        f"{PARITY_BATCH} in {cpu_s:.1f} s; card: {launches} bn-stats "
-        f"launches ({BN_PER_FORWARD} per forward), none of the plain "
+    want_cl = launches if layout == "NHWC" else 0
+    check(launches_cl == want_cl and copies == 0,
+          f"{tag} {launches_cl} channels-last launches (want {want_cl}), "
+          f"{copies} copied BatchNorm inputs (want 0)")
+    log(f"{tag} parity: 2 CPU plain runs of {steps} steps at batch "
+        f"{PARITY_BATCH} ({layout}) in {cpu_s:.1f} s; card: {launches} "
+        f"bn-stats launches ({BN_PER_FORWARD} per forward, {launches_cl} "
+        f"on the channels-last entry, {copies} copies), none of the plain "
         f"version")
     quantities = [(f"loss of step {i + 1}", lambda r, i=i: {"l": r[0][i]})
-                  for i in range(PARITY_STEPS)]
+                  for i in range(steps)]
     quantities += [("step-1 gradients", lambda r: r[1]),
                    (f"parameters and running statistics after step "
-                    f"{PARITY_STEPS}", lambda r: r[2])]
+                    f"{steps}", lambda r: r[2])]
     for what, pick in quantities:
         spread, spread_at = _rel(pick(again), pick(ref))
         tol = max(1e-4, 2 * spread)
         err, err_at = _rel(pick(card), pick(ref))
-        log(f"[train] {what}: card vs CPU {err:.3e} of the tensor's max "
+        log(f"{tag} {what}: card vs CPU {err:.3e} of the tensor's max "
             f"(worst {err_at}), CPU vs CPU reordered {spread:.3e} (worst "
             f"{spread_at}), tol {tol:.3e}")
         check(all(np.isfinite(v).all() for v in pick(card).values()),
               f"non-finite {what}")
         check(err <= tol, f"card training disagrees with the CPU plain run: "
                           f"{what}")
-    log(f"[train] losses, card: {[float(l.mean()) for l in card[0]]}, "
+    log(f"{tag} losses, card: {[float(l.mean()) for l in card[0]]}, "
         f"CPU: {[float(l.mean()) for l in ref[0]]}")
 
 
-def phase_train(bs, path, card, amp_on=False):
+def phase_train(bs, path, card, amp_on=False, layout="NCHW"):
     """The main path at full width: batch 32, 3 warm and 10 timed steps;
     returns (launches, {BatchNorm input shape: count per forward}, step
     ms, peak bytes).  ``amp_on`` (phase 18): the same under ``amp.init()``
     with ``init_trainer`` and ``scale_loss``; every bn-stats launch must
-    read fp32 (BatchNorm is on AMP's fp32 list)."""
+    read fp32 (BatchNorm is on AMP's fp32 list).  ``layout="NHWC"``
+    (phase 22): the NHWC net, every launch on the channels-last entry and
+    no BatchNorm input copied."""
     from mxnet_tpu_torch import autograd, gluon, telemetry
     from mxnet_tpu_torch.contrib import amp
     from mxnet_tpu_torch.gluon.model_zoo import get_model
     from mxnet_tpu_torch.gluon.nn import BatchNorm
     tag, precision = ("[amp_train]", "AMP bf16") if amp_on \
         else ("[train]", "fp32")
+    if layout == "NHWC":
+        tag = tag.replace("[", "[nhwc_")
 
-    net = get_model("resnet50_v1", classes=1000)
+    net = get_model("resnet50_v1", classes=1000, layout=layout)
     net.load_parameters(str(path))
     bn_shapes = []
     hooks = [m.register_forward_pre_hook(
         lambda m, i: bn_shapes.append(tuple(i[0].shape)))
         for m in net.modules() if isinstance(m, BatchNorm)]
     rng = np.random.RandomState(3)
-    x = torch.from_numpy(rng.randn(TRAIN_BATCH, *IMAGE).astype("float32")) \
-        .cuda()
+    x = torch.from_numpy(_images(rng, TRAIN_BATCH, layout)).cuda()
     y = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH)
                          .astype("float32")).cuda()
     trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
@@ -1214,6 +1297,7 @@ def phase_train(bs, path, card, amp_on=False):
     telemetry.reset()
     with no_plain_stats_on_cuda(bs), kernel_dtypes(bs) as seen:
         bs.bn_stats.launches = 0                 # the main path starts
+        bs.bn_stats.launches_cl = bs.bn_stats.copies = 0
         t0 = time.perf_counter()
         losses = [step() for _ in range(WARM_STEPS)]
         # a full collection of what the earlier phases left (~300k tracked
@@ -1228,6 +1312,7 @@ def phase_train(bs, path, card, amp_on=False):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = bs.bn_stats.launches          # the main path ends
+        launches_cl, copies = bs.bn_stats.launches_cl, bs.bn_stats.copies
     snap = telemetry.snapshot()
     telemetry.disable()
     peak = torch.cuda.max_memory_allocated()
@@ -1242,14 +1327,20 @@ def phase_train(bs, path, card, amp_on=False):
           f"bn-stats launched on {set(seen)} inputs (want float32)")
     check(len(bn_shapes) == BN_PER_FORWARD * WARM_STEPS,
           f"{len(bn_shapes)} BatchNorm calls in {WARM_STEPS} forwards")
+    want_cl = launches if layout == "NHWC" else 0
+    check(launches_cl == want_cl and copies == 0,
+          f"{tag} {launches_cl} channels-last launches (want {want_cl}), "
+          f"{copies} copied BatchNorm inputs (want 0)")
     step_ms = (t2 - t1) * 1e3 / TIMED_STEPS
     upd = snap["spans"].get("trainer.update", {"calls": 1, "total_ms": 0.0})
-    log(f"{tag} resnet50_v1 batch {TRAIN_BATCH} {precision} (TF32 off): "
+    log(f"{tag} resnet50_v1 {layout} batch {TRAIN_BATCH} {precision} "
+        f"(TF32 off): "
         f"{WARM_STEPS} warm steps {(t1 - t0) * 1e3:.1f} ms, {TIMED_STEPS} "
         f"timed steps {step_ms:.3f} ms each, "
         f"{TRAIN_BATCH * 1e3 / step_ms:.2f} images/s; peak device memory "
         f"{peak / 2**30:.3f} GiB; {launches} bn-stats launches "
-        f"({BN_PER_FORWARD} per step); trainer.update "
+        f"({BN_PER_FORWARD} per step, {launches_cl} on the channels-last "
+        f"entry, {copies} copies); trainer.update "
         f"{upd['total_ms'] / max(upd['calls'], 1):.3f} ms host per step; "
         f"on {card}")
     log(f"{tag} mean loss per step: {[round(l, 4) for l in losses]}")
@@ -1287,15 +1378,47 @@ def profile_train_step(step, step_ms, top=12):
         f"{sum(e.count for e in kernels)} launches; bn-stats kernels "
         f"{bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy); "
         f"{_kernel_share(kernels, busy_ms)}")
+    log(f"[profile] train step convolutions by kind: "
+        f"{_conv_kinds(kernels)}")
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    log("[profile] train step host ops by self CPU ms: " + ", ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} x{e.count}"
+        for e in host))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def bn_record(times, fp16_times, counts, err, fp16_err, launches):
-    """The bn-stats kernel's JSON record: times summed over the BatchNorm
-    inputs of one batch-32 forward (fp32, and the kernel's fp16 time and
-    bound at the same inputs)."""
+def _conv_kinds(kernels):
+    """Device ms of cuDNN's convolution kernels by pass (forward, data and
+    weight gradient: ``fprop``/``dgrad``/``wgrad`` in their names) and the
+    other kernels whose names say convolution; bf16/fp16 tensor-core
+    engines name their operand type, fp32 FMA engines ``ffma``/``simt``."""
+    out = {}
+    for e in kernels:
+        k = e.key.lower()
+        kind = next((w for w in ("fprop", "dgrad", "wgrad") if w in k),
+                    "other conv" if "conv" in k else None)
+        if kind is None:
+            continue
+        unit = "fp32 FMA" if any(w in k for w in ("ffma", "simt")) else \
+            "tensor cores" if any(w in k for w in ("bf16", "f16", "hmma",
+                                                   "tf32", "xmma", "wgmma",
+                                                   "gmma")) else "other"
+        key = f"{kind} ({unit})"
+        out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
+    return ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(out.items())) \
+        or "none named"
+
+
+def bn_record(times, fp16_times, counts, err, fp16_err, launches,
+              name="bn_stats"):
+    """The bn-stats kernel's JSON record (``name``: its NCHW entry, or
+    ``bn_stats_cl``, the channels-last one): times summed over the
+    BatchNorm inputs of one batch-32 forward (fp32, and the kernel's fp16
+    time and bound at the same inputs)."""
     check(set(counts) == set(times),
           f"BatchNorm geometries {sorted(counts)} differ from the timed "
           f"ones {sorted(times)}")
@@ -1305,15 +1428,17 @@ def bn_record(times, fp16_times, counts, err, fp16_err, launches):
     check(len(by) == 1, f"bounds of mixed kinds {by}")
     fp16 = [sum(fp16_times[s][i] * n for s, n in counts.items())
             for i in range(2)]
-    log(f"[bn_stats] one batch-{TRAIN_BATCH} forward ({sum(counts.values())}"
+    log(f"[{name}] one batch-{TRAIN_BATCH} forward ({sum(counts.values())}"
         f" launches): kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, "
         f"var_mean {total[2]:.4f} ms, bound {total[3]:.4f} ms; fp16 kernel "
         f"{fp16[0]:.4f} ms, bound {fp16[1]:.4f} ms")
-    return {"name": "bn_stats", "route": "cuda",
+    layout = "NHWC" if name == "bn_stats_cl" else "NCHW"
+    return {"name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/bn_stats.cu",
             "replaces": "benchmark/pallas_bn_stats.py:91",
             "shape": f"the {sum(counts.values())} BatchNorm inputs of one "
-                     f"batch-{TRAIN_BATCH} ResNet-50 v1 forward; ms summed",
+                     f"batch-{TRAIN_BATCH} {layout} ResNet-50 v1 forward; "
+                     f"ms summed",
             "dtype": "float32", "launches": launches, "max_abs_err": err,
             "fp16_max_abs_err": fp16_err, "fp16_ms": fp16[0],
             "fp16_bound_ms": fp16[1], "ms": total[0],
@@ -2620,6 +2745,282 @@ def phase_fp16_and_symbolic(bs, path, card_name):
     return launches
 
 
+# ------------------------------------------------------------ slice 10
+def phase_bn_kernel_cl(bs, card):
+    """Phase 20: the bn-stats kernel's channels-last entry against its
+    plain version at the 53 NHWC BatchNorm inputs' nine geometries of
+    ResNet-50 at batch 32, fp32 and fp16 (atol 2e-5, as phase 7), and
+    against the NCHW entry on the same data transposed (1e-6, fp32, the
+    same pivot element); per geometry its time beside the plain version,
+    ``torch.var_mean`` over (0, 1, 2) and the bound.  Returns the same
+    tuple as :func:`phase_bn_kernel`, keyed by NHWC shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    times, fp16_times, path_err, fp16_err, entry_err = {}, {}, 0.0, 0.0, 0.0
+    for shape in RESNET50_BN_NHWC:
+        for dtype in (torch.float32, torch.float16):
+            x = (torch.randn(shape, generator=gen, device=dev) * 0.5) \
+                .to(dtype)
+            pivot = x[0, 0, 0].float().contiguous()
+            before = bs.bn_stats.launches_cl
+            m, v = bs.bn_stats(x, pivot, 3)
+            torch.cuda.synchronize()
+            check(bs.bn_stats.launches_cl == before + 1,
+                  f"[bn_stats_cl] {shape} did not take the channels-last "
+                  f"entry")
+            rm, rv = bs._reference(x, pivot, 3)
+            err = max((m - rm).abs().max().item(),
+                      (v - rv).abs().max().item())
+            check(m.shape == v.shape == (shape[3],) and math.isfinite(err)
+                  and err <= 2e-5,
+                  f"[bn_stats_cl] disagrees with the plain version at "
+                  f"{shape} {dtype}: {err}")
+            line = (f"[bn_stats_cl] {shape} {str(dtype)[6:]}: max_abs_err "
+                    f"{err:.3e} (tol 2e-05)")
+            k = device_ms(lambda: bs.bn_stats(x, pivot, 3))
+            bound, by = bn_stats_bound_ms(shape, dtype, 3)
+            if dtype == torch.float16:
+                fp16_err = max(fp16_err, err)
+                fp16_times[shape] = (k, bound, by)
+            else:
+                path_err = max(path_err, err)
+                cf = x.permute(0, 3, 1, 2).contiguous()
+                cm, cv = bs.bn_stats(cf, cf[0, :, 0, 0].contiguous())
+                e2 = max((m - cm).abs().max().item(),
+                         (v - cv).abs().max().item())
+                entry_err = max(entry_err, e2)
+                check(e2 <= 1e-6, f"[bn_stats_cl] the NHWC and NCHW entries "
+                                  f"disagree at {shape}: {e2}")
+                pl = device_ms(lambda: bs._reference(x, pivot, 3))
+                lib = device_ms(lambda: torch.var_mean(
+                    x, dim=(0, 1, 2), unbiased=False))
+                times[shape] = (k, pl, lib, bound, by)
+                line += (f", vs the NCHW entry {e2:.3e} (tol 1e-06); plain "
+                         f"{pl:.4f} ms, var_mean {lib:.4f} ms")
+            log(line + f"; kernel {k:.4f} ms, bound {bound:.4f} ms ({by}), "
+                       f"{bound / k:.2f} of the bound")
+    log(f"[bn_stats_cl] timed on {card}; NHWC vs NCHW entry max "
+        f"{entry_err:.3e}")
+    return times, fp16_times, path_err, fp16_err
+
+
+def nhwc_params(path):
+    """Phase 6's NCHW weights as an NHWC net's ``.params`` file: every 4-D
+    weight ``(O, I, kh, kw)`` transposed to ``(O, kh, kw, I)``, as the JAX
+    package's NHWC nets store it."""
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    src = get_model("resnet50_v1", classes=1000, device="cpu")
+    src.load_parameters(str(path))
+    net = get_model("resnet50_v1", classes=1000, layout="NHWC",
+                    device="cpu")
+    with torch.no_grad():
+        net(torch.zeros(1, 32, 32, 3))         # fixes the deferred widths
+    net.load_state_dict({k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
+                         for k, v in src.state_dict().items()})
+    out = BUILD / "resnet50_v1_nhwc.params"
+    net.save_parameters(str(out))
+    return out
+
+
+def phase_nhwc_parity(bs, path):
+    """Phase 21: ResNet-50 v1 ``layout="NHWC"`` at full width and depth,
+    batch 8: its fp32 inference logits on the card against the CPU within
+    1e-4 of their max, and the NCHW net on the card with the same weights
+    (transposed) against them within the same; then phase 8's parity in
+    NHWC for 3 SGD steps.  Returns the NHWC ``.params`` path."""
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    path_nhwc = nhwc_params(path)
+    x = _images(np.random.RandomState(21), PARITY_BATCH, "NHWC")
+
+    def logits(layout, device, p):
+        net = get_model("resnet50_v1", classes=1000, layout=layout,
+                        device=device)
+        net.load_parameters(str(p))
+        data = x if layout == "NHWC" else x.transpose(0, 3, 1, 2)
+        with torch.inference_mode():
+            return net(torch.from_numpy(np.ascontiguousarray(data))
+                       .to(device)).float().cpu().numpy()
+
+    ref = logits("NHWC", "cpu", path_nhwc)
+    card = logits("NHWC", "cuda", path_nhwc)
+    nchw = logits("NCHW", "cuda", path)
+    scale = float(np.abs(ref).max())
+    for what, got in (("NHWC card", card), ("NCHW card", nchw)):
+        err = float(np.abs(got - ref).max())
+        log(f"[nhwc] fp32 logits, {what} vs NHWC CPU: max_abs_err "
+            f"{err:.3e}, {err / scale:.3e} of max|logit| {scale:.3f} (tol "
+            f"1e-4)")
+        check(np.isfinite(got).all() and err <= 1e-4 * scale,
+              f"[nhwc] {what} logits disagree with the CPU")
+    phase_train_parity(bs, path_nhwc, "NHWC", NHWC_PARITY_STEPS)
+    return path_nhwc
+
+
+def _mlp_params(rng):
+    """A small MLP's parameters (784-128-64-10 as weight, bias pairs)."""
+    shapes = [(128, 784), (128,), (64, 128), (64,), (10, 64), (10,)]
+    return shapes, [rng.randn(*s).astype("float32") * 0.1 for s in shapes]
+
+
+TRAIN_LOOP_OPTS = [
+    ("signum", dict(learning_rate=0.01, momentum=0.9, wd=1e-3)),
+    ("ftml", dict(learning_rate=0.01, wd=1e-3)),
+    ("lbsgd", dict(learning_rate=0.1, momentum=0.9, warmup_strategy="lars",
+                   batch_scale=2)),
+    ("dcasgd", dict(learning_rate=0.1, momentum=0.9, wd=1e-3)),
+    ("nag", dict(learning_rate=0.1, momentum=0.9, wd=1e-3)),
+    ("sgld", dict(learning_rate=0.01, wd=1e-3)),
+    ("ccsgd", dict(learning_rate=0.1, momentum=0.9, wd=1e-3)),
+    ("adagrad", dict(learning_rate=0.1, wd=1e-3)),
+    ("rmsprop", dict(learning_rate=0.01, wd=1e-3, clip_gradient=0.5)),
+    ("rmsprop", dict(learning_rate=0.01, centered=True, wd=1e-3)),
+    ("adadelta", dict(wd=1e-3)),
+    ("ftrl", dict(learning_rate=0.1, lamda1=0.01, wd=1e-3)),
+    ("adamax", dict(learning_rate=0.002, wd=1e-3)),
+    ("nadam", dict(learning_rate=0.001, wd=1e-3)),
+    ("test", dict(rescale_grad=0.5)),
+]
+
+
+def _opt_run(name, kw, device, ws, grads, aggregate):
+    from mxnet_tpu_torch import optimizer, random
+    random.seed(10)
+    o = optimizer.create(name, **kw)
+    o.aggregate_num = 256 if aggregate else 1
+    up = optimizer.get_updater(o)
+    tw = [torch.tensor(w, device=device) for w in ws]     # copies
+    idx = list(range(len(ws)))
+    for gs in grads:
+        up(idx, [torch.tensor(g, device=device) for g in gs], tw)
+    return tw
+
+
+def _held_max(tag, what, got, ref, tol):
+    err = max(float((a.float().cpu() - b).abs().max())
+              / max(float(b.abs().max()), 1e-30) for a, b in zip(got, ref))
+    check(math.isfinite(err) and err <= tol,
+          f"{tag} {what}: card vs CPU {err:.3e} of the tensor's max > "
+          f"{tol:g}")
+    return err
+
+
+def phase_training_loop(card, device="cuda"):
+    """Phase 23: the rest of the training loop on the card.  Each
+    optimizer of slice 10 (and AdamW through its op) takes 3 grouped
+    updates of an MLP's parameters with seeded gradients, card against
+    CPU within 1e-5 of each tensor's max (SGLD by its noise: mean and
+    variance of the card's step minus the deterministic part, 5 standard
+    errors); each grouped rule equals its per-parameter update bit for
+    bit on the card; every new loss and its input gradient, and a
+    ``backward(create_graph=True)`` second derivative, card against CPU
+    within 1e-5 of the tensor's max."""
+    from mxnet_tpu_torch import autograd, gluon, optimizer
+    from mxnet_tpu_torch.ops import optimizer_ops
+    from mxnet_tpu_torch.optimizer.aggregate import _RULES
+    rng = np.random.RandomState(23)
+    shapes, ws = _mlp_params(rng)
+    grads = [[rng.randn(*s).astype("float32") for s in shapes]
+             for _ in range(3)]
+    worst, grouped = 0.0, []
+    for name, kw in TRAIN_LOOP_OPTS:
+        ref = _opt_run(name, kw, "cpu", ws, grads, True)
+        got = _opt_run(name, kw, device, ws, grads, True)
+        if name == "sgld":
+            lr, wd = kw["learning_rate"], kw["wd"]
+            w = torch.from_numpy(ws[0]).double()
+            for gs in grads:   # the deterministic part, step by step
+                w = w - lr / 2 * (torch.from_numpy(gs[0]).double() + wd * w)
+            # each step adds N(0, lr): three steps N(0, 3 lr) in total,
+            # less the small decay of the earlier steps' noise
+            noise = got[0].double().cpu() - w
+            n = noise.numel()
+            ok = abs(float(noise.mean())) < 5 * math.sqrt(3 * lr / n) and \
+                abs(float(noise.var()) / (3 * lr) - 1) < 0.01 + \
+                5 * math.sqrt(2.0 / n)
+            log(f"[train_loop] sgld: noise mean {float(noise.mean()):.3e}, "
+                f"variance {float(noise.var()):.4e} (3 lr = {3 * lr:g})")
+            check(ok, "[train_loop] SGLD's noise has the wrong moments")
+            continue
+        err = _held_max("[train_loop]", name, got, ref, 1e-5)
+        worst = max(worst, err)
+        if type(optimizer.create(name, **kw)) in _RULES:
+            per = _opt_run(name, kw, device, ws, grads, False)
+            check(all(torch.equal(a, b) for a, b in zip(got, per)),
+                  f"[train_loop] {name}: grouped and per-parameter updates "
+                  f"differ on the card")
+            grouped.append(name)
+        log(f"[train_loop] {name} {kw}: card vs CPU {err:.3e} of the "
+            f"tensor's max (tol 1e-05)")
+    # AdamW through its op
+    outs = []
+    for dev in ("cpu", device):
+        w, m, v = (torch.tensor(a, device=dev) for a in
+                   (ws[0], np.zeros_like(ws[0]), np.zeros_like(ws[0])))
+        for gs in grads:
+            optimizer_ops.adamw_update(w, torch.tensor(gs[0], device=dev),
+                                       m, v, lr=0.01, eta=0.5, wd=0.01,
+                                       rescale_grad=0.5)
+        outs.append([w, m, v])
+    err = _held_max("[train_loop]", "adamw_update", outs[1], outs[0], 1e-5)
+    log(f"[train_loop] adamw_update: card vs CPU {err:.3e} (tol 1e-05); "
+        f"grouped == per-parameter bit for bit on the card: {grouped}")
+    worst = max(worst, err)
+
+    # the losses and their gradients
+    lrng = np.random.RandomState(24)
+    pred = lrng.randn(16, 10).astype("float32")
+    cases = [
+        ("SigmoidBinaryCrossEntropyLoss", {},
+         [pred, (lrng.rand(16, 10) > 0.5).astype("float32")]),
+        ("KLDivLoss", {"from_logits": False},
+         [pred, lrng.dirichlet(np.ones(10), 16).astype("float32")]),
+        ("HuberLoss", {"rho": 0.5}, [pred, lrng.randn(16, 10)]),
+        ("HingeLoss", {}, [pred, np.sign(lrng.randn(16, 10))]),
+        ("SquaredHingeLoss", {}, [pred, np.sign(lrng.randn(16, 10))]),
+        ("LogisticLoss", {}, [pred, np.sign(lrng.randn(16, 10))]),
+        ("TripletLoss", {}, [pred, lrng.randn(16, 10),
+                             lrng.randn(16, 10)]),
+        ("PoissonNLLLoss", {}, [pred, lrng.poisson(2.0, (16, 10))]),
+        ("CosineEmbeddingLoss", {}, [pred, lrng.randn(16, 10),
+                                     np.sign(lrng.randn(16))]),
+        ("CTCLoss", {}, [lrng.randn(4, 20, 8),
+                         lrng.randint(0, 7, (4, 5))]),
+    ]
+    for name, kw, arrays in cases:
+        res = []
+        for dev in ("cpu", device):
+            ins = [torch.tensor(np.asarray(a, "float32"), device=dev)
+                   for a in arrays]
+            autograd.mark_variables(ins[0], torch.zeros_like(ins[0]))
+            with autograd.record():
+                loss = getattr(gluon.loss, name)(**kw)(*ins)
+            autograd.backward(loss)
+            res.append([loss.detach(), ins[0].grad])
+        err = _held_max("[train_loop]", f"{name} and its gradient", res[1],
+                        [t.cpu() for t in res[0]], 1e-5)
+        worst = max(worst, err)
+        log(f"[train_loop] {name}: loss and input gradient, card vs CPU "
+            f"{err:.3e} (tol 1e-05)")
+    # second order through backward(create_graph=True)
+    res = []
+    for dev in ("cpu", device):
+        x = torch.tensor([0.5, -1.0, 2.0, 0.25], device=dev)
+        autograd.mark_variables(x, torch.zeros_like(x))
+        with autograd.record():
+            y = (torch.sin(x) * x * x).sum()
+        autograd.backward(y, create_graph=True)
+        first = x.grad.detach().clone()
+        with autograd.record():
+            z = (x.grad * x.grad).sum()
+        autograd.backward(z)
+        res.append([first, x.grad])
+    err = _held_max("[train_loop]", "backward(create_graph=True)", res[1],
+                    [t.cpu() for t in res[0]], 1e-5)
+    log(f"[train_loop] backward(create_graph=True) second order: card vs "
+        f"CPU {err:.3e} (tol 1e-05); worst of the phase {max(worst, err):.3e}"
+        f"; on {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -2669,7 +3070,22 @@ def main():
         f"{amp_train_peak / 2**30:.3f} GiB against "
         f"{train_peak / 2**30:.3f} GiB")
     bn["fp16_launches"] = phase_fp16_and_symbolic(bs, path, card)
-    print(json.dumps({"kernels": [record, rtc_record, bn]}), flush=True)
+    # slice 10: channels-last training and the rest of the training loop
+    cl_times, cl_fp16, cl_err, cl_fp16_err = phase_bn_kernel_cl(bs, card)
+    path_nhwc = phase_nhwc_parity(bs, path)
+    cl_launches, cl_counts, nhwc_ms, nhwc_peak = phase_train(
+        bs, path_nhwc, card, layout="NHWC")
+    bn_cl = bn_record(cl_times, cl_fp16, cl_counts, cl_err, cl_fp16_err,
+                      cl_launches, name="bn_stats_cl")
+    bn_cl["amp_launches"], _, nhwc_amp_ms, nhwc_amp_peak = phase_train(
+        bs, path_nhwc, card, amp_on=True, layout="NHWC")
+    log(f"[nhwc_train] NHWC step fp32 {nhwc_ms:.3f} ms, AMP "
+        f"{nhwc_amp_ms:.3f} ms, against NCHW fp32 {train_ms:.3f} ms (phase "
+        f"9) and AMP {amp_train_ms:.3f} ms (phase 18) in this call; peak "
+        f"{nhwc_peak / 2**30:.3f} and {nhwc_amp_peak / 2**30:.3f} GiB")
+    phase_training_loop(card)
+    print(json.dumps({"kernels": [record, rtc_record, bn, bn_cl]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -190,27 +190,39 @@ def _leaves(heads):
     return list(leaves.values())
 
 
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
+             create_graph=False):
     """Gradients of ``heads`` into the buffers of the leaves under them
-    (``mxnet_tpu/autograd.py:196``), each by its ``grad_req``."""
+    (``mxnet_tpu/autograd.py:196``), each by its ``grad_req``.
+    ``create_graph`` records the gradient computation: each buffer then
+    holds a gradient that can be differentiated again (the buffer is
+    rebound to it, as the JAX package rebinds its NDArray), and the graph
+    of ``heads`` is kept."""
     heads = _as_list(heads)
     hgrads = _head_grads(heads, head_grads)
     leaves = [v for v in _leaves(heads) if grad_req_of(v) != "null"]
     if not leaves:
         return
-    with _Scope(recording=False, training=train_mode):
+    with _Scope(recording=create_graph, training=train_mode):
         grads = torch.autograd.grad(heads, leaves, hgrads,
-                                    retain_graph=retain_graph,
+                                    retain_graph=retain_graph or create_graph,
+                                    create_graph=create_graph,
                                     allow_unused=True)
-    with torch.no_grad():
-        for v, g in zip(leaves, grads):
-            if g is None:
-                continue
-            if v.grad is None:
+    for v, g in zip(leaves, grads):
+        if g is None:
+            continue
+        add = grad_req_of(v) == "add" and v.grad is not None
+        if create_graph:
+            v.grad = v.grad + g if add else g
+            continue
+        with torch.no_grad():
+            if v.grad is None or v.grad.requires_grad:
                 # a fresh buffer: ``g`` may be a view or shared with
-                # another leaf's gradient
-                v.grad = torch.empty_like(v).copy_(g)
-            elif grad_req_of(v) == "add":
+                # another leaf's gradient, and a recorded gradient is
+                # rebound, not written
+                v.grad = (v.grad.detach() + g) if add else \
+                    torch.empty_like(v).copy_(g)
+            elif add:
                 v.grad.add_(g)
             else:
                 v.grad.copy_(g)

@@ -32,6 +32,34 @@
 //  - stage 2: one thread per channel adds its S partials in order, in
 //    double, and writes mean and var.
 // Simple and correct; no TMA or persistent blocks yet.
+//
+// Channels-last entry (mxt_bn_stats_cl).  NHWC data, or NCHW-shaped data in
+// torch.channels_last memory format, is a row-major (M, C) matrix with
+// M = N*H*W, which the TPU kernel never read.  The same function is computed
+// with the same pivot (the first row, x[0, 0, 0, c], the element the NCHW
+// route uses), the same stage 2 and so the same determinism:
+//  - stage 1: a (ceil(C / (W*V)), S) grid of 256-thread blocks.  A block
+//    spans W*V consecutive channels (W a power of two <= 256, V elements a
+//    16/8/4/2/1-byte load): thread t loads vector t % W of rows t / W,
+//    t / W + 256 / W, ... of its row slice, so neighbouring lanes read
+//    neighbouring addresses and a warp reads whole lines (at C = 64 fp32,
+//    W = 16: two adjacent 256-byte rows a warp).  Each thread carries its V
+//    channels' sums in registers; the block folds its 256 / W row lanes
+//    through shared memory in a fixed order and writes its (sum, sumsq)
+//    pairs to partial[(s * C + c) * 2], channel-minor, so that stage 2 reads
+//    them in whole lines.
+//  - stage 2 (bn_stats_fold_cl): where NCHW folds at most a few dozen
+//    partials a channel, a small C here takes S ~ 1,000 row slices to fill
+//    the card (C = 64 at M = 401,408: one column block, so S = 1,056), and
+//    one thread adding 1,056 partials in a row waits on 1,056 loads: the
+//    first version of this entry did that and took 0.09-0.19 ms a tensor,
+//    4-10x its NCHW twin (H100 80GB HBM3, 700 W).  So a block of 32 x 32
+//    threads folds 32 channels:
+//    thread (c, r) adds partials r, r + 32, ... in double, in order, and
+//    the 32 row lanes are then added in order, in double: still a fixed
+//    order, so two runs give the same bits.
+// S is chosen by the wrapper, as for NCHW, so that the grid fills the card:
+// C = 64 at M = 401,408 takes many row slices, C = 2048 at M = 1,568 few.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,6 +152,133 @@ __global__ void bn_stats_fold(const float* __restrict__ partial,
   var[c] = (float)(v > 0.0 ? v : 0.0);
 }
 
+// Channels-last stage 1: block (b, s) covers channels [b*W*V, (b+1)*W*V)
+// of rows [s*per, (s+1)*per); writes partial[(s * C + c) * 2 + {0, 1}].
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+bn_stats_partial_cl(const T* __restrict__ x, const float* __restrict__ pivot,
+                    float* __restrict__ partial, int channels,
+                    unsigned rows, int width) {
+  const int vecs = channels / V;             // vectors per row
+  const int col = threadIdx.x & (width - 1);
+  const int lane_row = threadIdx.x / width;
+  const int row_step = kThreads / width;
+  const int j = blockIdx.x * width + col;    // this thread's vector column
+  const unsigned s = blockIdx.y, splits = gridDim.y;
+  const unsigned per = (rows + splits - 1) / splits;
+  const unsigned begin = s * per;
+  const unsigned end = min(rows, begin + per);
+
+  float p[V], sum[V], sq[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    p[k] = (pivot && j < vecs) ? pivot[j * V + k] : 0.f;
+    sum[k] = 0.f;
+    sq[k] = 0.f;
+  }
+  if (j < vecs) {
+    const Pack<T, V>* xv = reinterpret_cast<const Pack<T, V>*>(x);
+#pragma unroll 4
+    for (unsigned r = begin + lane_row; r < end; r += row_step) {
+      const Pack<T, V> pk = xv[(size_t)r * vecs + j];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float d = to_f32(pk.v[k]) - p[k];
+        sum[k] += d;
+        sq[k] += d * d;
+      }
+    }
+  }
+
+  // fold the row lanes in a fixed order: smem[(lane_row * W + col) * V + k]
+  __shared__ float ssum[kThreads * V], ssq[kThreads * V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    ssum[threadIdx.x * V + k] = sum[k];
+    ssq[threadIdx.x * V + k] = sq[k];
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < width * V; o += kThreads) {
+    const int c = blockIdx.x * width * V + o;
+    if (c >= channels) break;
+    float bs = 0.f, bq = 0.f;
+    for (int lr = 0; lr < row_step; ++lr) {
+      bs += ssum[lr * width * V + o];
+      bq += ssq[lr * width * V + o];
+    }
+    float* out = partial + ((size_t)s * channels + c) * 2;
+    out[0] = bs;
+    out[1] = bq;
+  }
+}
+
+constexpr int kFoldLanes = 32;
+
+// Channels-last stage 2: block b folds channels [32b, 32b + 32), thread
+// (x, y) = (channel, row lane); blockDim = (32, kFoldLanes).
+__global__ void __launch_bounds__(32 * kFoldLanes)
+bn_stats_fold_cl(const float* __restrict__ partial,
+                 const float* __restrict__ pivot, float* __restrict__ mean,
+                 float* __restrict__ var, int channels, int splits,
+                 double inv_count) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  double s = 0.0, q = 0.0;
+  if (c < channels) {
+    for (int i = threadIdx.y; i < splits; i += kFoldLanes) {
+      s += partial[((size_t)i * channels + c) * 2];
+      q += partial[((size_t)i * channels + c) * 2 + 1];
+    }
+  }
+  __shared__ double ss[kFoldLanes][32], sq[kFoldLanes][32];
+  ss[threadIdx.y][threadIdx.x] = s;
+  sq[threadIdx.y][threadIdx.x] = q;
+  __syncthreads();
+  if (threadIdx.y != 0 || c >= channels) return;
+  s = 0.0;
+  q = 0.0;
+  for (int r = 0; r < kFoldLanes; ++r) {
+    s += ss[r][threadIdx.x];
+    q += sq[r][threadIdx.x];
+  }
+  const double dm = s * inv_count;
+  const double v = q * inv_count - dm * dm;
+  mean[c] = (float)((pivot ? (double)pivot[c] : 0.0) + dm);
+  var[c] = (float)(v > 0.0 ? v : 0.0);
+}
+
+template <typename T, int V>
+cudaError_t launch_cl(const void* x, const float* pivot, float* partial,
+                      float* mean, float* var, long long rows, int channels,
+                      int splits, int width, cudaStream_t stream) {
+  const int col_blocks = (channels / V + width - 1) / width;
+  dim3 grid(col_blocks, splits);
+  bn_stats_partial_cl<T, V><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), pivot, partial, channels, (unsigned)rows,
+      width);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bn_stats_fold_cl<<<(channels + 31) / 32, dim3(32, kFoldLanes), 0,
+                     stream>>>(partial, pivot, mean, var, channels, splits,
+                               1.0 / (double)rows);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cl_v(const void* x, const float* pivot, float* partial,
+                        float* mean, float* var, long long rows, int channels,
+                        int splits, int vec, int width, cudaStream_t stream) {
+  switch (vec) {
+    case 1: return launch_cl<T, 1>(x, pivot, partial, mean, var, rows, channels, splits, width, stream);
+    case 2: return launch_cl<T, 2>(x, pivot, partial, mean, var, rows, channels, splits, width, stream);
+    case 4: return launch_cl<T, 4>(x, pivot, partial, mean, var, rows, channels, splits, width, stream);
+    case 8:
+      if constexpr (sizeof(T) * 8 == 16)
+        return launch_cl<T, 8>(x, pivot, partial, mean, var, rows, channels, splits, width, stream);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int V>
 cudaError_t launch(const void* x, const float* pivot, float* partial,
                    float* mean, float* var, int n, int channels,
@@ -180,6 +335,31 @@ int mxt_bn_stats(const void* x, const float* pivot, float* partial,
     case 0: err = launch_v<float>(x, pivot, partial, mean, var, n, channels, hw, splits, vec, s); break;
     case 1: err = launch_v<__nv_bfloat16>(x, pivot, partial, mean, var, n, channels, hw, splits, vec, s); break;
     case 2: err = launch_v<__half>(x, pivot, partial, mean, var, n, channels, hw, splits, vec, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// x: a row-major (rows, channels) matrix on `device` (NHWC, or NCHW in
+// channels_last memory format), dtype as above; pivot, partial, mean, var
+// as above.  `vec` elements are loaded at a time: it must divide channels,
+// and x must be aligned to vec elements (the wrapper checks both).  A
+// stage-1 block spans `width` vectors of a row: a power of two, 1 to 256.
+int mxt_bn_stats_cl(const void* x, const float* pivot, float* partial,
+                    float* mean, float* var, long long rows, int channels,
+                    int splits, int vec, int width, int dtype, int device,
+                    void* stream) {
+  if (rows < 1 || rows > 0x7fffffffLL || channels < 1 || splits < 1 ||
+      splits > 65535 || vec < 1 || channels % vec != 0 || width < 1 ||
+      width > kThreads || (width & (width - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: err = launch_cl_v<float>(x, pivot, partial, mean, var, rows, channels, splits, vec, width, s); break;
+    case 1: err = launch_cl_v<__nv_bfloat16>(x, pivot, partial, mean, var, rows, channels, splits, vec, width, s); break;
+    case 2: err = launch_cl_v<__half>(x, pivot, partial, mean, var, rows, channels, splits, vec, width, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;

@@ -6,8 +6,13 @@ Same blocks, same child names and so the same structural parameter names
 as the JAX package, so a JAX ``save_parameters`` file loads here as it is.
 As there, the stem convolution and the bottlenecks' 1x1 convolutions are
 built with ``in_channels=0`` and take their widths from the first forward
-or from ``load_parameters``.  NCHW only: ``layout="NHWC"`` raises
-(ROADMAP.md).  ``device=None`` means the GPU.
+or from ``load_parameters``.  ``layout`` is ``"NCHW"`` or ``"NHWC"``, as
+there (``mxnet_tpu/gluon/model_zoo/vision/resnet.py:20-26``): every
+convolution and pool takes it and every BatchNorm normalises over
+``axis=layout.find("C")``, so an NHWC net runs channel-last end to end
+(its training BatchNorms on the bn-stats kernel's channels-last entry)
+and loads the JAX package's NHWC ``.params`` file as it is.
+``device=None`` means the GPU.
 """
 from __future__ import annotations
 
@@ -15,7 +20,6 @@ from ....context import as_device
 from ....ops import nn as ops
 from ...block import HybridBlock
 from ... import nn
-from ...nn.conv_layers import _check_layout
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "get_resnet",
@@ -24,14 +28,21 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "resnet101_v2", "resnet152_v2"]
 
 
-def _conv3x3(channels, stride, in_channels, device):
+def _conv3x3(channels, stride, in_channels, layout, device):
     return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
-                     use_bias=False, in_channels=in_channels, device=device)
+                     use_bias=False, in_channels=in_channels, layout=layout,
+                     device=device)
 
 
-def _conv1x1(channels, stride, in_channels, device):
+def _conv1x1(channels, stride, in_channels, layout, device):
     return nn.Conv2D(channels, kernel_size=1, strides=stride, use_bias=False,
-                     in_channels=in_channels, device=device)
+                     in_channels=in_channels, layout=layout, device=device)
+
+
+def _bn(layout, device, **kwargs):
+    if layout not in ("NCHW", "NHWC"):
+        raise ValueError(f"layout {layout!r}: must be NCHW or NHWC")
+    return nn.BatchNorm(axis=layout.find("C"), device=device, **kwargs)
 
 
 def _relu(x):
@@ -44,19 +55,18 @@ class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__()
-        _check_layout(layout, "NCHW")
         device = as_device(device)
         self.body = nn.HybridSequential()
-        self.body.add(_conv3x3(channels, stride, in_channels, device))
-        self.body.add(nn.BatchNorm(device=device))
+        self.body.add(_conv3x3(channels, stride, in_channels, layout, device))
+        self.body.add(_bn(layout, device))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv3x3(channels, 1, channels, device))
-        self.body.add(nn.BatchNorm(device=device))
+        self.body.add(_conv3x3(channels, 1, channels, layout, device))
+        self.body.add(_bn(layout, device))
         if downsample:
             self.downsample = nn.HybridSequential()
             self.downsample.add(_conv1x1(channels, stride, in_channels,
-                                         device))
-            self.downsample.add(nn.BatchNorm(device=device))
+                                         layout, device))
+            self.downsample.add(_bn(layout, device))
         else:
             self.downsample = None
 
@@ -73,22 +83,22 @@ class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__()
-        _check_layout(layout, "NCHW")
         device = as_device(device)
         self.body = nn.HybridSequential()
-        self.body.add(_conv1x1(channels // 4, stride, 0, device))
-        self.body.add(nn.BatchNorm(device=device))
+        self.body.add(_conv1x1(channels // 4, stride, 0, layout, device))
+        self.body.add(_bn(layout, device))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv3x3(channels // 4, 1, channels // 4, device))
-        self.body.add(nn.BatchNorm(device=device))
+        self.body.add(_conv3x3(channels // 4, 1, channels // 4, layout,
+                               device))
+        self.body.add(_bn(layout, device))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv1x1(channels, 1, 0, device))
-        self.body.add(nn.BatchNorm(device=device))
+        self.body.add(_conv1x1(channels, 1, 0, layout, device))
+        self.body.add(_bn(layout, device))
         if downsample:
             self.downsample = nn.HybridSequential()
             self.downsample.add(_conv1x1(channels, stride, in_channels,
-                                         device))
-            self.downsample.add(nn.BatchNorm(device=device))
+                                         layout, device))
+            self.downsample.add(_bn(layout, device))
         else:
             self.downsample = None
 
@@ -104,13 +114,13 @@ class BasicBlockV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__()
-        _check_layout(layout, "NCHW")
         device = as_device(device)
-        self.bn1 = nn.BatchNorm(device=device)
-        self.conv1 = _conv3x3(channels, stride, in_channels, device)
-        self.bn2 = nn.BatchNorm(device=device)
-        self.conv2 = _conv3x3(channels, 1, channels, device)
-        self.downsample = _conv1x1(channels, stride, in_channels, device) \
+        self.bn1 = _bn(layout, device)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout, device)
+        self.bn2 = _bn(layout, device)
+        self.conv2 = _conv3x3(channels, 1, channels, layout, device)
+        self.downsample = _conv1x1(channels, stride, in_channels, layout,
+                                   device) \
             if downsample else None
 
     def forward(self, x):
@@ -129,15 +139,16 @@ class BottleneckV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__()
-        _check_layout(layout, "NCHW")
         device = as_device(device)
-        self.bn1 = nn.BatchNorm(device=device)
-        self.conv1 = _conv1x1(channels // 4, 1, 0, device)
-        self.bn2 = nn.BatchNorm(device=device)
-        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, device)
-        self.bn3 = nn.BatchNorm(device=device)
-        self.conv3 = _conv1x1(channels, 1, 0, device)
-        self.downsample = _conv1x1(channels, stride, in_channels, device) \
+        self.bn1 = _bn(layout, device)
+        self.conv1 = _conv1x1(channels // 4, 1, 0, layout, device)
+        self.bn2 = _bn(layout, device)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, layout,
+                              device)
+        self.bn3 = _bn(layout, device)
+        self.conv3 = _conv1x1(channels, 1, 0, layout, device)
+        self.downsample = _conv1x1(channels, stride, in_channels, layout,
+                                   device) \
             if downsample else None
 
     def forward(self, x):
@@ -152,13 +163,13 @@ class BottleneckV2(HybridBlock):
         return self.conv3(x) + residual
 
 
-def _stage(block, layers, channels, stride, in_channels, device):
+def _stage(block, layers, channels, stride, in_channels, layout, device):
     stage = nn.HybridSequential()
     stage.add(block(channels, stride, channels != in_channels,
-                    in_channels=in_channels, device=device))
+                    in_channels=in_channels, layout=layout, device=device))
     for _ in range(layers - 1):
         stage.add(block(channels, 1, False, in_channels=channels,
-                        device=device))
+                        layout=layout, device=device))
     return stage
 
 
@@ -168,24 +179,23 @@ class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout="NCHW", device=None):
         super().__init__()
-        _check_layout(layout, "NCHW")
         if len(layers) != len(channels) - 1:
             raise ValueError("one channel count per stage plus the stem's")
         device = as_device(device)
         self.features = nn.HybridSequential()
         if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 0, device))
+            self.features.add(_conv3x3(channels[0], 1, 0, layout, device))
         else:
             self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                                        device=device))
-            self.features.add(nn.BatchNorm(device=device))
+                                        layout=layout, device=device))
+            self.features.add(_bn(layout, device))
             self.features.add(nn.Activation("relu"))
-            self.features.add(nn.MaxPool2D(3, 2, 1))
+            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
         for i, num_layer in enumerate(layers):
             self.features.add(_stage(block, num_layer, channels[i + 1],
                                      1 if i == 0 else 2, channels[i],
-                                     device))
-        self.features.add(nn.GlobalAvgPool2D())
+                                     layout, device))
+        self.features.add(nn.GlobalAvgPool2D(layout=layout))
         self.output = nn.Dense(classes, in_units=channels[-1], device=device)
 
     def forward(self, x):
@@ -199,30 +209,28 @@ class ResNetV2(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout="NCHW", device=None):
         super().__init__()
-        _check_layout(layout, "NCHW")
         if len(layers) != len(channels) - 1:
             raise ValueError("one channel count per stage plus the stem's")
         device = as_device(device)
         self.features = nn.HybridSequential()
-        self.features.add(nn.BatchNorm(scale=False, center=False,
-                                       device=device))
+        self.features.add(_bn(layout, device, scale=False, center=False))
         if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 0, device))
+            self.features.add(_conv3x3(channels[0], 1, 0, layout, device))
         else:
             self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                                        device=device))
-            self.features.add(nn.BatchNorm(device=device))
+                                        layout=layout, device=device))
+            self.features.add(_bn(layout, device))
             self.features.add(nn.Activation("relu"))
-            self.features.add(nn.MaxPool2D(3, 2, 1))
+            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
         in_channels = channels[0]
         for i, num_layer in enumerate(layers):
             self.features.add(_stage(block, num_layer, channels[i + 1],
                                      1 if i == 0 else 2, in_channels,
-                                     device))
+                                     layout, device))
             in_channels = channels[i + 1]
-        self.features.add(nn.BatchNorm(device=device))
+        self.features.add(_bn(layout, device))
         self.features.add(nn.Activation("relu"))
-        self.features.add(nn.GlobalAvgPool2D())
+        self.features.add(nn.GlobalAvgPool2D(layout=layout))
         self.features.add(nn.Flatten())
         self.output = nn.Dense(classes, in_units=in_channels, device=device)
 

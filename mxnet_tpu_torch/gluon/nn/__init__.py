@@ -2,5 +2,5 @@
 from .activations import GELU, Activation  # noqa: F401
 from .basic_layers import (BatchNorm, Dense, Dropout, Embedding,  # noqa: F401
                            Flatten, HybridSequential, LayerNorm)
-from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D,  # noqa: F401
-                          MaxPool2D)
+from .conv_layers import (AvgPool2D, Conv1D, Conv2D, Conv3D,  # noqa: F401
+                          GlobalAvgPool2D, MaxPool2D)

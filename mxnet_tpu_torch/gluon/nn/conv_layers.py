@@ -1,10 +1,15 @@
 """Convolution and pooling layers (counterpart of
-``mxnet_tpu/gluon/nn/conv_layers.py``: ``_Conv``/``Conv2D`` :24, :153 and
-the pooling layers :246-403).
+``mxnet_tpu/gluon/nn/conv_layers.py``: ``_Conv``/``Conv1D``/``Conv2D``/
+``Conv3D`` :24-200 and the 2-D pooling layers :246-403).
 
-Channel-first layouts only; ``layout="NHWC"`` raises (ROADMAP.md).  The
-weight is ``(channels, in_channels / groups, *kernel)``; ``in_channels=0``
-defers it to the first forward or to ``load_parameters``.
+Channel-first and channel-last layouts, as the JAX package: the weight
+follows the data's layout, ``(channels, in_channels / groups, *kernel)``
+for NCW/NCHW/NCDHW and ``(channels, *kernel, in_channels / groups)`` for
+NWC/NHWC/NDHWC (``mxnet_tpu/gluon/nn/conv_layers.py:70-89``), so a JAX
+``.params`` file of either layout loads as it is.  ``in_channels=0``
+defers the weight to the first forward or to ``load_parameters``.
+Pooling is 2-D only (NCHW, NHWC); 1-D and 3-D pooling wait for ROADMAP.md
+queue 1 item 6, as the transposed convolutions do.
 """
 from __future__ import annotations
 
@@ -17,22 +22,21 @@ from ..block import HybridBlock, is_deferred
 from .activations import Activation
 from .basic_layers import _param
 
-__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool2D", "AvgPool2D",
+           "GlobalAvgPool2D"]
 
 
-def _check_layout(layout, channel_first):
-    if layout != channel_first:
-        raise NotImplementedError(
-            f"layout {layout!r}: the port takes {channel_first} only; "
-            f"channel-last layouts are queued in ROADMAP.md")
+def _check_layout(layout, allowed):
+    if layout not in allowed:
+        raise ValueError(f"layout {layout!r}: must be one of {allowed}")
 
 
 class _Conv(HybridBlock):
     """Base convolution layer."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
-                 groups, in_channels=0, activation=None, use_bias=True,
-                 dtype=torch.float32, device=None):
+                 groups, layout, in_channels=0, activation=None,
+                 use_bias=True, dtype=torch.float32, device=None):
         super().__init__()
         nd = len(kernel_size)
         self._channels = channels
@@ -41,36 +45,69 @@ class _Conv(HybridBlock):
         self._pad = ops._tuple(padding, nd, 0)
         self._dilate = ops._tuple(dilation, nd, 1)
         self._groups = groups
-        self.weight = _param((channels, in_channels // groups)
-                             + self._kernel, dtype, device)
+        self._layout = layout
+        self._caxis = layout.index("C")
+        self.weight = _param(self._weight_shape(in_channels), dtype, device)
         self.bias = nn.Parameter(torch.empty(channels, dtype=dtype,
                                              device=device)) \
             if use_bias else None
         self.act = Activation(activation) if activation is not None \
             else None
 
+    def _weight_shape(self, in_channels):
+        ic = in_channels // self._groups
+        if self._caxis == 1:
+            return (self._channels, ic) + self._kernel
+        return (self._channels,) + self._kernel + (ic,)
+
     def forward(self, x):
         if is_deferred(self.weight):
             self._materialize(
-                {"weight": (self._channels, x.shape[1] // self._groups)
-                 + self._kernel}, x.device)
+                {"weight": self._weight_shape(x.shape[self._caxis])},
+                x.device)
         x, w, b = amp_inputs("Convolution", x, self.weight, self.bias)
         y = ops.convolution(x, w, b, self._stride, self._pad, self._dilate,
-                            self._groups)
+                            self._groups, self._layout)
         return y if self.act is None else self.act(y)
 
 
+class Conv1D(_Conv):
+    """1-D convolution over NCW or NWC data."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, in_channels=0, dtype=torch.float32,
+                 device=None):
+        _check_layout(layout, ("NCW", "NWC"))
+        super().__init__(channels, ops._tuple(kernel_size, 1, 1), strides,
+                         padding, dilation, groups, layout, in_channels,
+                         activation, use_bias, dtype, device)
+
+
 class Conv2D(_Conv):
-    """2-D convolution over NCHW data."""
+    """2-D convolution over NCHW or NHWC data."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", activation=None,
                  use_bias=True, in_channels=0, dtype=torch.float32,
                  device=None):
-        _check_layout(layout, "NCHW")
+        _check_layout(layout, ("NCHW", "NHWC"))
         super().__init__(channels, ops._tuple(kernel_size, 2, 1), strides,
-                         padding, dilation, groups, in_channels, activation,
-                         use_bias, dtype, device)
+                         padding, dilation, groups, layout, in_channels,
+                         activation, use_bias, dtype, device)
+
+
+class Conv3D(_Conv):
+    """3-D convolution over NCDHW or NDHWC data."""
+
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", activation=None, use_bias=True,
+                 in_channels=0, dtype=torch.float32, device=None):
+        _check_layout(layout, ("NCDHW", "NDHWC"))
+        super().__init__(channels, ops._tuple(kernel_size, 3, 1), strides,
+                         padding, dilation, groups, layout, in_channels,
+                         activation, use_bias, dtype, device)
 
 
 class _Pooling(HybridBlock):
@@ -78,8 +115,10 @@ class _Pooling(HybridBlock):
     convention."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode=False,
-                 global_pool=False, pool_type="max", count_include_pad=True):
+                 global_pool=False, pool_type="max", count_include_pad=True,
+                 layout="NCHW"):
         super().__init__()
+        _check_layout(layout, ("NCHW", "NHWC"))
         nd = len(pool_size)
         self._kwargs = {
             "kernel": tuple(pool_size),
@@ -88,35 +127,32 @@ class _Pooling(HybridBlock):
             "pad": ops._tuple(padding, nd, 0), "global_pool": global_pool,
             "pool_type": pool_type,
             "pooling_convention": "full" if ceil_mode else "valid",
-            "count_include_pad": count_include_pad}
+            "count_include_pad": count_include_pad, "layout": layout}
 
     def forward(self, x):
         return ops.pooling(x, **self._kwargs)
 
 
 class MaxPool2D(_Pooling):
-    """2-D max pooling over NCHW data."""
+    """2-D max pooling over NCHW or NHWC data."""
 
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False):
-        _check_layout(layout, "NCHW")
         super().__init__(ops._tuple(pool_size, 2, 1), strides, padding,
-                         ceil_mode, False, "max")
+                         ceil_mode, False, "max", layout=layout)
 
 
 class AvgPool2D(_Pooling):
-    """2-D average pooling over NCHW data."""
+    """2-D average pooling over NCHW or NHWC data."""
 
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  ceil_mode=False, layout="NCHW", count_include_pad=True):
-        _check_layout(layout, "NCHW")
         super().__init__(ops._tuple(pool_size, 2, 1), strides, padding,
-                         ceil_mode, False, "avg", count_include_pad)
+                         ceil_mode, False, "avg", count_include_pad, layout)
 
 
 class GlobalAvgPool2D(_Pooling):
     """Mean over H and W, keeping them as 1."""
 
     def __init__(self, layout="NCHW"):
-        _check_layout(layout, "NCHW")
-        super().__init__((1, 1), None, 0, True, True, "avg")
+        super().__init__((1, 1), None, 0, True, True, "avg", layout=layout)

@@ -74,6 +74,10 @@ def bind(lib):
     f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
         [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
+    f = lib.mxt_bn_stats_cl
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + \
+        [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
     lib.mxt_error_string.argtypes = [ctypes.c_int]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,8 +9,15 @@ operators (cuDNN convolutions, inference normalisation and cuBLAS
 products), except BatchNorm's training-mode batch statistics, which run on
 the port's counterpart of ``bn_stats_kernel`` (``ops/bn_stats.py``).
 
-Only the channel-first layouts (NCW/NCHW/NCDHW) are ported; a channel-last
-``layout`` raises (ROADMAP.md, queue 1).
+Channel-first (NCW/NCHW/NCDHW) and channel-last (NWC/NHWC/NDHWC) layouts
+are both taken, as in the JAX package (``_spec``/``_channel_pos`` at
+``mxnet_tpu/ops/nn.py:54-85``).  A channel-last convolution or pooling
+hands torch a ``permute`` view of the data (and of the weight, stored
+``(num_filter, *kernel, C/g)`` as there), which is a tensor in
+``torch.channels_last`` memory format: cuDNN reads it as it lies and
+returns the same format, so the permuted-back output is contiguous in
+the caller's layout and nothing is copied.  Pooling over 1-D and 3-D
+data is not ported (ROADMAP.md, queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -21,12 +28,12 @@ import torch.nn.functional as F
 
 from ..base import parse_bool, parse_float, parse_int, parse_tuple, \
     torch_dtype
-from .bn_stats import batch_stats
+from . import bn_stats as _bs
 from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "update_moving_stats", "activation", "flatten", "layer_norm",
-           "softmax", "embedding"]
+           "softmax", "embedding", "ctc_loss"]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
@@ -76,24 +83,41 @@ def _tuple(v, nd, default):
     return v
 
 
-def _channel_first(layout, nd):
-    if layout not in (None, "", ("NCW", "NCHW", "NCDHW")[nd - 1]):
-        raise NotImplementedError(
-            f"layout {layout!r}: the port takes channel-first data only; "
-            f"channel-last layouts are queued in ROADMAP.md")
+def _channel_axis(layout, ndim):
+    """The channel axis of an MXNet layout string (``None``: axis 1)."""
+    if layout in (None, "None", ""):
+        return 1
+    lay = str(layout)
+    if len(lay) != ndim or lay[0] != "N" or "C" not in lay:
+        raise ValueError(f"bad layout {layout!r} for {ndim}-d data")
+    return lay.index("C")
+
+
+def _to_channel_first(x, ax):
+    """A view of ``x`` with its channel axis ``ax`` moved to 1."""
+    return x if ax == 1 else x.movedim(ax, 1)
 
 
 def convolution(data, weight, bias=None, stride=None, pad=None, dilate=None,
                 num_group=1, layout=None):
-    """N-d convolution, data ``(N, C, *spatial)``, weight
-    ``(num_filter, C/num_group, *kernel)``, symmetric zero padding."""
+    """N-d convolution with symmetric zero padding.  Channel-first data
+    ``(N, C, *spatial)`` takes the weight ``(num_filter, C/num_group,
+    *kernel)``; channel-last data ``(N, *spatial, C)`` the weight
+    ``(num_filter, *kernel, C/num_group)``, and gives channel-last
+    output."""
     nd = data.dim() - 2
-    _channel_first(layout, nd)
+    ax = _channel_axis(layout, data.dim())
+    if ax not in (1, nd + 1):
+        raise ValueError(f"layout {layout!r}: the channel axis must be "
+                         f"second or last")
+    x, w = _to_channel_first(data, ax), _to_channel_first(weight, ax)
     late = bias is not None and data.dtype in _LOW   # as fully_connected
-    out = _CONV[nd](data, weight, None if late else bias,
+    out = _CONV[nd](x, w, None if late else bias,
                     _tuple(stride, nd, 1), _tuple(pad, nd, 0),
                     _tuple(dilate, nd, 1), int(num_group))
-    return out + bias.reshape((-1,) + (1,) * nd) if late else out
+    if late:
+        out = out + bias.reshape((-1,) + (1,) * nd)
+    return out if ax == 1 else out.movedim(1, ax)
 
 
 def _pool_pads(shape, kernel, stride, pad, convention):
@@ -124,36 +148,49 @@ def _window_sum(x, kernel, stride, pads):
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             pooling_convention="valid", stride=None, pad=None,
             count_include_pad=True, layout=None):
-    """Max/avg/sum pooling over H and W of NCHW data.
+    """Max/avg/sum pooling over H and W of NCHW or NHWC data.
 
     Padding is filled with the reduction's identity (-inf for max, 0 for
     the sums); ``avg`` divides by the window size when
     ``count_include_pad`` (extra ``"full"`` padding included, as the
-    reference does) and by the count of real elements otherwise."""
+    reference does) and by the count of real elements otherwise.  NHWC
+    pools a ``channels_last`` view, whose format torch's pooling and
+    padding keep, and returns NHWC."""
     if data.dim() != 4:
-        raise NotImplementedError("the port pools NCHW data only")
-    _channel_first(layout, 2)
+        raise NotImplementedError(
+            "the port pools 2-D (NCHW/NHWC) data only; 1-D and 3-D pooling "
+            "wait for ROADMAP.md queue 1 item 6")
+    ax = _channel_axis(layout, 4)
+    if ax not in (1, 3):
+        raise ValueError(f"layout {layout!r}: pooling takes NCHW or NHWC")
     if pool_type not in ("max", "avg", "sum"):
         raise ValueError(f"unknown pool_type {pool_type!r}")
+    spatial = (2, 3) if ax == 1 else (1, 2)
     if global_pool:
         reduce = {"max": torch.amax, "avg": torch.mean, "sum": torch.sum}
-        return reduce[pool_type](data, dim=(2, 3), keepdim=True)
-    kernel, stride, pad = (_tuple(kernel, 2, 1), _tuple(stride, 2, 1),
-                           _tuple(pad, 2, 0))
-    pads = _pool_pads(data.shape[2:], kernel, stride, pad, pooling_convention)
+        return reduce[pool_type](data, dim=spatial, keepdim=True)
+    x = _to_channel_first(data, ax)
+    out = _pool2d(x, _tuple(kernel, 2, 1), _tuple(stride, 2, 1),
+                  _tuple(pad, 2, 0), pool_type, pooling_convention,
+                  count_include_pad)
+    return out if ax == 1 else out.movedim(1, ax)
+
+
+def _pool2d(x, kernel, stride, pad, pool_type, convention,
+            count_include_pad):
+    pads = _pool_pads(x.shape[2:], kernel, stride, pad, convention)
     if pool_type == "max":
         if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
             # torch pads with -inf itself: no padded copy of the input
-            return F.max_pool2d(data, kernel, stride, pad)
-        return F.max_pool2d(_padded(data, pads, float("-inf")), kernel,
-                            stride)
-    s = _window_sum(data, kernel, stride, pads)
+            return F.max_pool2d(x, kernel, stride, pad)
+        return F.max_pool2d(_padded(x, pads, float("-inf")), kernel, stride)
+    s = _window_sum(x, kernel, stride, pads)
     if pool_type == "sum":
         return s
     if count_include_pad:
         return s / math.prod(kernel)
-    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
-                      device=data.device)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
     return s / _window_sum(ones, kernel, stride, pads)
 
 
@@ -166,26 +203,30 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     and returns the output only.  Training normalises with the batch
     statistics, as ``mxnet_tpu/ops/nn.py:284-305`` does, and returns
     ``(out, mean, var)`` (``var`` biased).  The statistics come from the
-    bn-stats kernel (``ops/bn_stats.py``) with the pivot ``x[0, c, 0, ...]``
-    as its shift; ``out``'s gradient flows through them (the pivot is a
-    constant).  A channel axis other than 1 is moved to 1 first, and the
-    statistics read a contiguous copy of any input that is not contiguous
-    (``channels_last`` included).
+    bn-stats kernel (``ops/bn_stats.py``) with the pivot, the first element
+    of each channel (``x[0, c, 0, 0]``, ``x[0, 0, 0, c]`` in NHWC), as its
+    shift; ``out``'s gradient flows through them (the pivot is a
+    constant).  The statistics read the activation as it lies when the
+    channel axis is 1 of a contiguous tensor or the innermost one (NHWC,
+    ``channels_last``): the kernel's two entries.  Any other input is
+    copied to contiguous channel-first once, on every device, counted in
+    ``bn_stats.copies``.
     The moving statistics are not touched: see
     :func:`update_moving_stats`."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
     ax = axis % data.dim()
     if not training:
-        x = data if ax == 1 else data.movedim(ax, 1)
+        x = _to_channel_first(data, ax)
         out = F.batch_norm(x, moving_mean, moving_var, g, beta,
                            training=False, eps=float(eps))
         return out if ax == 1 else out.movedim(1, ax)
-    # the kernel reads contiguous NCHW only: any other layout (a moved
-    # channel axis, channels_last, a strided view) is copied here
-    x = (data if ax == 1 else data.movedim(ax, 1)).contiguous()
-    pivot = x[(0, slice(None)) + (0,) * (x.dim() - 2)].detach().float() \
-        .contiguous()
-    mean32, var32 = batch_stats(x, pivot)
+    x, xax = data, ax
+    if _bs.layout(data, ax) is None:
+        x, xax = _to_channel_first(data, ax).contiguous(), 1
+        _bs.bn_stats.copies += 1
+    pivot = x[tuple(slice(None) if i == xax else 0
+                    for i in range(x.dim()))].detach().float().contiguous()
+    mean32, var32 = _bs.batch_stats(x, pivot, xax)
     mean, var = mean32.to(data.dtype), var32.to(data.dtype)
     shape = [1] * data.dim()
     shape[ax] = data.shape[ax]
@@ -220,6 +261,53 @@ def activation(data, act_type="relu"):
 def flatten(data):
     """``(N, ...) -> (N, prod(...))``."""
     return data.reshape(data.shape[0], -1)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             blank_label="first"):
+    """Connectionist temporal classification loss, one per sequence: the
+    forward algorithm in log space over ``data`` ``(T, N, alphabet)``
+    (unnormalised scores; log-softmax taken here), as the JAX op
+    (``mxnet_tpu/ops/nn.py:619-679``) runs it.
+
+    ``blank_label`` ``"first"`` makes 0 the blank and 0 the labels'
+    padding; ``"last"`` makes ``alphabet - 1`` the blank and -1 the
+    padding.  A label's length is its count of non-padding entries
+    unless ``label_lengths`` is given; ``data_lengths`` stops each
+    sequence's recursion early.  Differentiable through torch's
+    autograd."""
+    seq_len, batch, nalpha = data.shape
+    blank = 0 if blank_label == "first" else nalpha - 1
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.long()
+    ext = torch.full((batch, 2 * lab.shape[1] + 1), blank, dtype=torch.long,
+                     device=data.device)
+    ext[:, 1::2] = lab
+    # padding (-1) reads the last class, as the JAX gather's index does
+    idx = ext.remainder(nalpha)
+    if label_lengths is None:
+        lab_len = (lab > 0 if blank == 0 else lab >= 0).sum(dim=1)
+    else:
+        lab_len = label_lengths.long()
+    if data_lengths is None:
+        data_len = torch.full((batch,), seq_len, device=data.device)
+    else:
+        data_len = data_lengths.long()
+    skip = (ext != blank) & (ext != F.pad(ext, (2, 0), value=-1)[:, :-2])
+    neg = torch.full((batch, 1), -1e30, dtype=logp.dtype, device=data.device)
+    alpha = torch.cat([logp[0, :, blank:blank + 1],
+                       logp[0].gather(1, idx[:, 1:2]),
+                       neg.expand(batch, ext.shape[1] - 2)], dim=1)
+    for t in range(1, seq_len):
+        shift1 = torch.cat([neg, alpha[:, :-1]], dim=1)
+        shift2 = torch.cat([neg, neg, alpha[:, :-2]], dim=1)
+        cand = torch.logaddexp(alpha, shift1)
+        cand = torch.where(skip, torch.logaddexp(cand, shift2), cand)
+        new = cand + logp[t].gather(1, idx)
+        alpha = torch.where((t < data_len)[:, None], new, alpha)
+    last = (2 * lab_len)[:, None]
+    return -torch.logaddexp(alpha.gather(1, last),
+                            alpha.gather(1, (last - 1).clamp_min(0)))[:, 0]
 
 
 # --------------------------------------------------------------- op table
@@ -404,3 +492,18 @@ def _softmax_output_op(data, label, grad_scale=1.0, ignore_label=-1.0,
         data, label, axis, flat, parse_float(grad_scale, 1.0),
         parse_float(ignore_label, -1.0), parse_bool(use_ignore),
         str(normalization), parse_float(smooth_alpha, 0.0))
+
+
+@register("CTCLoss", aliases=("ctc_loss", "_contrib_CTCLoss",
+                              "_contrib_ctc_loss"))
+def _ctc_loss_op(data, label, *lengths, use_data_lengths=False,
+                 use_label_lengths=False, blank_label="first"):
+    """MXNet's ``CTCLoss``: the optional inputs after ``label`` are the
+    data lengths (with ``use_data_lengths``), then the label lengths
+    (with ``use_label_lengths``)."""
+    use_data = parse_bool(use_data_lengths)
+    data_lengths = lengths[0] if use_data and lengths else None
+    label_lengths = lengths[-1] if parse_bool(use_label_lengths) and \
+        len(lengths) > (1 if use_data else 0) else None
+    return ctc_loss(data, label, data_lengths, label_lengths,
+                    str(blank_label))

@@ -1,3 +1,5 @@
 """Optimizers of the port (``mx.optimizer``)."""
-from .optimizer import (SGD, Adam, Optimizer, Updater,  # noqa: F401
+from .optimizer import (SGD, SGLD, AdaDelta, AdaGrad, Adam,  # noqa: F401
+                        Adamax, DCASGD, FTML, Ftrl, LBSGD, NAG, Nadam,
+                        Optimizer, RMSProp, Signum, Test, Updater, ccSGD,
                         create, get_updater, register)

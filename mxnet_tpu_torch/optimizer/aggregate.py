@@ -1,5 +1,6 @@
 """The grouped (multi-tensor) optimizer update (counterpart of
-``mxnet_tpu/optimizer/aggregate.py``, its SGD and Adam rules).
+``mxnet_tpu/optimizer/aggregate.py``: its rules for SGD, Adam, NAG,
+Signum, RMSProp, AdaGrad, Adamax, Nadam, FTML and Ftrl, :156-439).
 
 MXNet 1.5 batches the updates of many small tensors into one launch
 (``multi_sgd_mom_update``); the JAX package groups them into one jitted
@@ -15,28 +16,31 @@ its master's value, as ``update_multi_precision`` does one at a time.
 Members that cannot join a group (another optimizer class, a gradient on
 another device or of another dtype, a bare fp16 weight, a tensor already
 in the group) take the per-parameter path.
+
+The later optimizers' rules are their own ``_rule`` (``optimizer.py``,
+the list-based functions of ``ops/optimizer_ops.py``), which their
+per-parameter update runs on lists of one.  Nadam's momentum schedule is
+one running product over members in the order they come, so Nadam groups
+only when all members fall into one group, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
-from .optimizer import SGD, Adam
+from ..ops.optimizer_ops import apply_wd_multi
+from .optimizer import (FTML, NAG, SGD, Adam, AdaGrad, Adamax, Ftrl, Nadam,
+                        RMSProp, Signum)
 
 __all__ = ["update_multi"]
 
 
 def _apply_wd(opt, weights, grads, wds):
     """``_apply_wd`` of ``ops/optimizer_ops.py`` over a group."""
-    g = torch._foreach_mul(grads, opt.rescale_grad)
-    clip = opt.clip_gradient
-    if clip is not None and clip > 0:
-        torch._foreach_clamp_min_(g, -clip)
-        torch._foreach_clamp_max_(g, clip)
-    torch._foreach_add_(g, torch._foreach_mul(weights, wds))
-    return g
+    return apply_wd_multi(weights, grads, wds, opt.rescale_grad,
+                          opt.clip_gradient)
 
 
-def _sgd_group(opt, indices, weights, grads, moms):
+def sgd_group(opt, indices, weights, grads, moms):
     opt._update_count(indices)
     lrs, wds = opt._get_lrs(indices), opt._get_wds(indices)
     g = _apply_wd(opt, weights, grads, wds)
@@ -69,7 +73,16 @@ def _adam_group(opt, indices, weights, grads, states):
     torch._foreach_sub_(weights, step)
 
 
-_RULES = {SGD: _sgd_group, Adam: _adam_group}
+def _own_rule(opt, indices, weights, grads, states):
+    """The optimizer's ``_rule``; a group without states passes Nones."""
+    opt._rule(indices, weights, grads,
+              [None] * len(indices) if states is None else states)
+
+
+# exact classes only: a subclass may override ``update``
+_RULES = {SGD: sgd_group, Adam: _adam_group}
+_RULES.update({cls: _own_rule for cls in (NAG, Signum, RMSProp, AdaGrad,
+                                          Adamax, Nadam, FTML, Ftrl)})
 
 
 def _tensors(state):
@@ -121,6 +134,8 @@ def update_multi(opt, indices, weights, grads, states):
             continue
         taken |= ptrs
         groups.setdefault(key, []).append(pos)
+    if type(opt) is Nadam and (fallback or len(groups) > 1):
+        fallback, groups = list(range(len(weights))), {}
     for (_, _, mp, has_state), members in groups.items():
         for lo in range(0, len(members), opt.aggregate_num):
             chunk = members[lo:lo + opt.aggregate_num]

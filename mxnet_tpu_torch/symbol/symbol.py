@@ -848,7 +848,12 @@ def _infer_layer_param_shapes(node, out_specs, var_spec):
         kernel = parse_tuple(a.get("kernel"))
         nf = parse_int(_literal(a.get("num_filter")))
         ng = parse_int(_literal(a.get("num_group", 1)), 1)
-        fill("weight", (nf, int(dshape[1]) // ng) + tuple(kernel))
+        layout = _literal(a.get("layout"))
+        cax = 1 if layout in (None, "None", "") else str(layout).find("C")
+        cin = int(dshape[cax]) // ng
+        # the weight follows the data's layout: (O, I, *k) or (O, *k, I)
+        fill("weight", (nf, cin) + tuple(kernel) if cax == 1
+             else (nf,) + tuple(kernel) + (cin,))
         fill("bias", (nf,))
     elif name == "BatchNorm":
         c = int(dshape[parse_int(_literal(a.get("axis", 1)), 1)])

@@ -529,3 +529,34 @@ UPDATE_OPS += [
          {"lr": 0.1, "momentum": 0.9, "wd": 0.01, "clip_gradient": 0.8},
          grad=False),
 ]
+# slice 10: CTCLoss, again one case in each half, and the other update ops
+OP_CASES.insert(len(OP_CASES) // 2, Case(
+    "CTCLoss", (("n", (8, 3, 5)), ("I", (3, 3), 1, 5))))
+OP_CASES.append(Case(
+    "CTCLoss", (("n", (8, 3, 5)), ("I", (3, 3), 0, 4), ("I", (3,), 4, 9),
+                ("I", (3,), 1, 4)),
+    {"use_data_lengths": True, "use_label_lengths": True,
+     "blank_label": "last"}))
+UPDATE_OPS += [
+    Case("nag_mom_update", (("n", S), ("n", S), ("n", S)),
+         {"lr": 0.1, "momentum": 0.9, "wd": 0.01}, grad=False),
+    Case("rmsprop_update", (("n", S), ("n", S), ("p", S)),
+         {"lr": 0.01, "gamma1": 0.9, "wd": 0.01, "clip_weights": 2.0},
+         grad=False),
+    Case("rmspropalex_update", (("n", S), ("n", S), ("p", S),
+                                ("u", S, -0.1, 0.1), ("n", S)),
+         {"lr": 0.01, "gamma1": 0.9, "gamma2": 0.8}, grad=False),
+    Case("ftrl_update", (("n", S), ("n", S), ("n", S), ("p", S)),
+         {"lr": 0.1, "lamda1": 0.02, "beta": 0.5, "wd": 0.01}, grad=False),
+    Case("signsgd_update", (("n", S), ("n", S)), {"lr": 0.1, "wd": 0.01},
+         grad=False),
+    Case("signum_update", (("n", S), ("n", S), ("n", S)),
+         {"lr": 0.1, "momentum": 0.9, "wd_lh": 0.01}, grad=False),
+    Case("ftml_update", (("n", S), ("n", S), ("n", S), ("p", S), ("n", S)),
+         {"lr": 0.01, "t": 2, "wd": 0.01}, grad=False),
+    Case("_sparse_adagrad_update", (("n", S), ("n", S), ("p", S)),
+         {"lr": 0.1, "wd": 0.01}, grad=False),
+    Case("adamw_update", (("n", S), ("n", S), ("n", S), ("p", S)),
+         {"lr": 0.01, "eta": 0.5, "wd": 0.1, "rescale_grad": 0.5},
+         grad=False),
+]

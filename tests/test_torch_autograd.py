@@ -308,3 +308,58 @@ def test_batchnorm_moving_stats_update():
     with ag.record():
         _close(frozen(torch.from_numpy(x)), x / np.sqrt(1 + 1e-5))
     assert torch.equal(frozen.running_mean, torch.zeros(4))
+
+
+@pytest.mark.parametrize("fn", ["sin_x", "cube", "tanh_sq"])
+def test_backward_create_graph_then_second_backward(fn):
+    """``backward(create_graph=True)`` leaves a recorded gradient in the
+    buffer; a second ``backward`` of a function of it gives the second
+    derivative (``sum(grad^2)`` differentiates to ``2 f' f''``), as the
+    JAX package's tape does."""
+    a = [0.5, -1.0, 2.0]
+    jx, x = _jvar(a), _var(a)
+    jf = {"sin_x": lambda v: jnd.sin(v) * v, "cube": lambda v: v * v * v,
+          "tanh_sq": lambda v: jnd.tanh(v) * jnd.tanh(v)}[fn]
+    tf = {"sin_x": lambda v: torch.sin(v) * v, "cube": lambda v: v * v * v,
+          "tanh_sq": lambda v: torch.tanh(v) * torch.tanh(v)}[fn]
+    with jag.record():
+        jy = jf(jx).sum()
+    jag.backward(jy, create_graph=True)
+    jg1 = jx.grad.asnumpy().copy()
+    with jag.record():
+        jz = (jx.grad * jx.grad).sum()
+    jz.backward()
+    with ag.record():
+        y = tf(x).sum()
+    ag.backward(y, create_graph=True)
+    assert x.grad.requires_grad
+    _close(x.grad, jg1)
+    with ag.record():
+        z = (x.grad * x.grad).sum()
+    ag.backward(z)
+    assert not x.grad.requires_grad
+    _close(x.grad, jx.grad.asnumpy(), 1e-4)
+
+
+def test_backward_create_graph_with_head_grads_and_add():
+    """``create_graph`` with head gradients, and ``grad_req="add"``: the
+    first pass adds into the buffer as a recorded sum; a second-order
+    backward of it matches the JAX package."""
+    a = [0.3, 1.2]
+    jx, x = _jvar(a, "add"), _var(a, "add")
+    hg = [2.0, -1.0]
+    with jag.record():
+        jy = jx * jx * jx
+    jag.backward(jy, jnd.array(np.asarray(hg, "float32")),
+                 create_graph=True)
+    with ag.record():
+        y = x * x * x
+    ag.backward(y, torch.tensor(hg), create_graph=True)
+    _close(x.grad, jx.grad.asnumpy())
+    with jag.record():
+        jz = (jx.grad * jnd.array(np.asarray([1.0, 3.0], "float32"))).sum()
+    jz.backward()
+    with ag.record():
+        z = (x.grad * torch.tensor([1.0, 3.0])).sum()
+    ag.backward(z)
+    _close(x.grad, jx.grad.asnumpy(), 1e-4)

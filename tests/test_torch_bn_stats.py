@@ -178,8 +178,9 @@ def test_bn_stats_takes_only_cpu_or_cuda():
 
 @pytest.mark.parametrize("layout", ["channels_last", "strided"])
 def test_training_batch_norm_takes_any_layout(layout, monkeypatch):
-    """A ``channels_last`` input and a strided view reach the statistics as
-    a contiguous NCHW copy (the kernel reads no other layout), and give
+    """A ``channels_last`` input reaches the statistics as it lies (the
+    kernel's channels-last entry reads it), a strided view as one
+    contiguous NCHW copy (counted in ``bn_stats.copies``), and both give
     JAX's output and gradients (the tolerances of the test above)."""
     x, gamma, beta = _data((4, 3, 5, 6), seed=5)
     (out, bmean, bvar), vjp = _jax_train(x, gamma, beta, 1, False)
@@ -188,8 +189,12 @@ def test_training_batch_norm_takes_any_layout(layout, monkeypatch):
 
     seen = []
     real = bs.bn_stats
-    monkeypatch.setattr(bs, "bn_stats", lambda t, p=None: seen.append(
-        t.is_contiguous()) or real(t, p))
+
+    def spy(t, p=None, axis=1):
+        seen.append(bs.layout(t, axis))
+        return real(t, p, axis)
+    spy.copies = 0
+    monkeypatch.setattr(bs, "bn_stats", spy)
     if layout == "channels_last":
         leaf = torch.from_numpy(x).to(memory_format=torch.channels_last) \
             .requires_grad_()
@@ -204,7 +209,8 @@ def test_training_batch_norm_takes_any_layout(layout, monkeypatch):
     o, m, v = ops.batch_norm(xt, gt, bt, torch.zeros(3), torch.ones(3),
                              1e-5, False, 1, training=True)
     o.backward(torch.from_numpy(dy))
-    assert seen == [True]
+    assert seen == (["cl"] if layout == "channels_last" else ["cf"])
+    assert spy.copies == (layout == "strided")
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=0,
                                atol=1e-4)
     np.testing.assert_allclose(m.numpy(), np.asarray(bmean), rtol=1e-5,
@@ -216,3 +222,104 @@ def test_training_batch_norm_takes_any_layout(layout, monkeypatch):
         ref = np.asarray(ref)
         np.testing.assert_allclose(port.numpy(), ref, rtol=0,
                                    atol=1e-4 * np.abs(ref).max())
+
+
+# ------------------------------------------------------- channels last
+@pytest.mark.parametrize("shape", [(4, 5, 6, 3), (2, 7, 7, 64), (3, 4, 130),
+                                   (1, 1, 1, 8), (2, 3, 2, 2, 5)])
+def test_channels_last_plain_stats_match_jax_and_nchw(shape):
+    """The plain statistics over a channel-last tensor (the kernel's
+    channels-last entry on the card) with the NHWC pivot ``x[0, 0, 0, c]``:
+    JAX's ``BatchNorm(axis=-1)`` batch statistics (rtol 1e-5, atol 1e-5),
+    and the channel-first plain version on the transposed data, whose
+    pivot is the same element, within 1e-6 (variance 0.25: a few fp32
+    steps of another summation order); an NCHW-shaped tensor in
+    ``channels_last`` memory takes the kernel's same entry and gives the
+    same within 1e-6."""
+    x, gamma, beta = _data(shape, seed=8, std=0.5, axis=-1)
+    ax = len(shape) - 1
+    (_, mean, var), _ = _jax_train(x, gamma, beta, ax, False)
+    xt = torch.from_numpy(x)
+    assert bs.layout(xt, ax) == "cl"
+    pivot = xt[(0,) * ax].contiguous()
+    m, v = bs.bn_stats(xt, pivot, ax)
+    np.testing.assert_allclose(m.numpy(), np.asarray(mean), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(v.numpy(), np.asarray(var), rtol=1e-5,
+                               atol=1e-5)
+    cf = xt.movedim(ax, 1).contiguous()
+    m1, v1 = bs.bn_stats(cf, cf[(0, slice(None)) + (0,) * (ax - 1)]
+                         .contiguous())
+    np.testing.assert_allclose(m.numpy(), m1.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(v.numpy(), v1.numpy(), rtol=0, atol=1e-6)
+    if len(shape) == 4 and shape[1] * shape[2] > 1:
+        # (with 1x1 maps both layouts are contiguous: the NCHW entry)
+        cl = xt.permute(0, 3, 1, 2)
+        assert cl.is_contiguous(memory_format=torch.channels_last)
+        assert bs.layout(cl, 1) == "cl"
+        m2, v2 = bs.bn_stats(cl, pivot)
+        np.testing.assert_allclose(m2.numpy(), m.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(v2.numpy(), v.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4, 5, 6, 3), (2, 9, 4), (2, 3, 4, 2, 6)])
+def test_batch_norm_last_axis_grad_matches_jax(shape):
+    """``batch_norm(axis=-1)`` in training, NWC, NHWC and NDHWC: output,
+    statistics and the input/gamma/beta gradients against JAX's op and
+    ``jax.vjp`` (the tolerances of the NCHW test above); nothing is
+    copied."""
+    x, gamma, beta = _data(shape, seed=9, axis=-1)
+    c = shape[-1]
+    (out, bmean, bvar), vjp = _jax_train(x, gamma, beta, -1, False)
+    dy = np.random.RandomState(10).randn(*shape).astype("float32")
+    jdx, jdg, jdb = vjp((jnp.asarray(dy), jnp.zeros(c), jnp.zeros(c)))
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in
+                  (x, gamma, beta))
+    copies = bs.bn_stats.copies
+    o, m, v = ops.batch_norm(xt, gt, bt, torch.zeros(c), torch.ones(c),
+                             1e-5, False, -1, training=True)
+    o.backward(torch.from_numpy(dy))
+    assert bs.bn_stats.copies == copies
+    assert o.is_contiguous()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(m.numpy(), np.asarray(bmean), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(v.numpy(), np.asarray(bvar), rtol=1e-5,
+                               atol=1e-4)
+    for port, ref in ((xt.grad, jdx), (gt.grad, jdg), (bt.grad, jdb)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(port.numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max())
+
+
+def test_gluon_batchnorm_axis3_folds_moving_stats_like_jax():
+    """``nn.BatchNorm(axis=3)`` in training: output and the moving
+    statistics after two batches against the JAX package's layer
+    (atol 1e-5), the statistics on the channel axis."""
+    import mxnet_tpu as jmx
+    from mxnet_tpu import autograd as jag
+    from mxnet_tpu import gluon as jgluon
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch.gluon import nn
+
+    rng = np.random.RandomState(11)
+    xs = [(rng.randn(3, 4, 5, 6) * 2 + 1).astype("float32") for _ in range(2)]
+    jbn = jgluon.nn.BatchNorm(axis=3, momentum=0.8)
+    jbn.initialize()
+    bn = nn.BatchNorm(axis=3, momentum=0.8, device="cpu")
+    bn.initialize()
+    for x in xs:
+        with jag.record():
+            jo = jbn(jmx.nd.array(x))
+        with ag.record():
+            o = bn(torch.from_numpy(x))
+        np.testing.assert_allclose(o.detach().numpy(), jo.asnumpy(), rtol=0,
+                                   atol=1e-5)
+    assert bn.running_mean.shape == (6,)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               jbn.running_mean.data().asnumpy(), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               jbn.running_var.data().asnumpy(), rtol=0,
+                               atol=1e-5)

@@ -10,6 +10,8 @@ Shapes are the nine BatchNorm inputs of ResNet-50 at 224 and batch 32
 (``benchmark/pallas_bn_stats.py:113-119``), plus a ragged and a large-mean
 case.  TF32 is switched off so that fp32 means fp32.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -85,9 +87,12 @@ def test_two_runs_give_the_same_bits(cuda):
 
 @pytest.mark.gpu
 def test_layouts_the_kernel_refuses(cuda):
+    """A strided view, another dtype and a bad pivot raise; a
+    ``channels_last`` tensor is taken (the channels-last entry)."""
     x = _x((4, 8, 6, 6), cuda)
-    with pytest.raises(ValueError, match="channels_last"):
-        bs.bn_stats(x.to(memory_format=torch.channels_last))
+    before = bs.bn_stats.launches_cl
+    bs.bn_stats(x.to(memory_format=torch.channels_last))
+    assert bs.bn_stats.launches_cl == before + 1
     with pytest.raises(ValueError, match="non-contiguous"):
         bs.bn_stats(x[:, :, :, :3])
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
@@ -133,8 +138,9 @@ def test_training_batch_norm_and_grads_match_cpu(cuda, shape):
 def test_training_batch_norm_any_layout_and_fp16_on_card(cuda, layout,
                                                          dtype):
     """Training-mode ``batch_norm`` takes ``channels_last``, a strided view
-    and fp16 on the card through the kernel (one launch, on a contiguous
-    copy where the input is not contiguous) and gives the CPU plain path's
+    and fp16 on the card through the kernel (one launch: ``channels_last``
+    on the channels-last entry, a strided view on a contiguous copy) and
+    gives the CPU plain path's
     output and gradients in the same dtype: within 1e-4 of each tensor's
     largest magnitude, plus one fp16 ulp of it (2^-10) in fp16, where each
     elementwise step rounds and the two devices' statistics and sums may
@@ -171,3 +177,98 @@ def test_training_batch_norm_any_layout_and_fp16_on_card(cuda, layout,
     for a, b in zip(got, run("cpu")):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=tol * max(1.0, b.abs().max()))
+
+
+# ------------------------------------------------------- channels last
+RESNET50_BN_NHWC = [(n, h, w, c) for n, c, h, w in RESNET50_BN]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RESNET50_BN_NHWC + [
+    (3, 5, 7, 9), (2, 3, 3, 3), (4, 6, 6, 17), (1, 1, 1, 64), (7, 1, 1000),
+    (2, 2, 2, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_channels_last_entry_matches_plain_on_card(cuda, shape, dtype):
+    """The channels-last entry on NHWC data (odd C, C under one warp's
+    width, one row, a channel count wider than a block) against the plain
+    version with the NHWC pivot, atol 2e-5; one launch, counted in
+    ``launches_cl``."""
+    x = _x(shape, cuda, getattr(torch, dtype))
+    ax = x.dim() - 1
+    pivot = x[(0,) * ax].float().contiguous()
+    before, before_cl = bs.bn_stats.launches, bs.bn_stats.launches_cl
+    mean, var = bs.bn_stats(x, pivot, ax)
+    torch.cuda.synchronize()
+    assert bs.bn_stats.launches == before + 1
+    assert bs.bn_stats.launches_cl == before_cl + 1
+    rmean, rvar = bs._reference(x, pivot, ax)
+    torch.testing.assert_close(mean, rmean, rtol=0, atol=2e-5)
+    torch.testing.assert_close(var, rvar, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,offset", [("float32", 1), ("float32", 2),
+                                          ("bfloat16", 3), ("float16", 4)])
+def test_channels_last_entry_misaligned_base(cuda, dtype, offset):
+    """A base address off the 16-byte line narrows the load: still the
+    plain version's statistics."""
+    shape = (4, 6, 6, 64)
+    flat = _x((math.prod(shape) + 8,), cuda, getattr(torch, dtype))
+    x = flat[offset:offset + math.prod(shape)].view(shape)
+    assert bs._vector_width(x, 64) < 16 // x.element_size()
+    pivot = x[0, 0, 0].float().contiguous()
+    mean, var = bs.bn_stats(x, pivot, 3)
+    rmean, rvar = bs._reference(x, pivot, 3)
+    torch.testing.assert_close(mean, rmean, rtol=0, atol=2e-5)
+    torch.testing.assert_close(var, rvar, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_channels_last_and_nchw_entries_agree(cuda):
+    """The same data through both entries (NCHW contiguous, and its NHWC
+    transpose), the same pivot element: within 1e-6 in fp32; two runs of
+    the channels-last entry give the same bits."""
+    x = _x((32, 64, 56, 56), cuda)
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    a = bs.bn_stats(x, x[0, :, 0, 0].contiguous())
+    b = bs.bn_stats(nhwc, nhwc[0, 0, 0].contiguous(), 3)
+    c = bs.bn_stats(nhwc, nhwc[0, 0, 0].contiguous(), 3)
+    torch.testing.assert_close(a[0], b[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(a[1], b[1], rtol=0, atol=1e-6)
+    assert torch.equal(b[0], c[0]) and torch.equal(b[1], c[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["nhwc", "channels_last"])
+def test_training_batch_norm_copies_nothing_channels_last(cuda, layout):
+    """Training-mode ``batch_norm`` on NHWC data (``axis=3``) and on
+    ``channels_last`` NCHW data (``axis=1``): one launch of the
+    channels-last entry, no copy, and the CPU plain path's output and
+    gradients within 1e-4 of each tensor's largest magnitude."""
+    shape = (8, 28, 28, 64)
+    rng = np.random.RandomState(2)
+    x = rng.randn(*shape).astype("float32") * 2 + 0.5
+    gamma = rng.uniform(0.5, 1.5, 64).astype("float32")
+    beta = rng.randn(64).astype("float32")
+    dy = rng.randn(*shape).astype("float32")
+    axis = 3 if layout == "nhwc" else 1
+
+    def run(dev):
+        leaf = torch.from_numpy(x).to(dev).requires_grad_()
+        xt = leaf if layout == "nhwc" else leaf.permute(0, 3, 1, 2)
+        gt, bt = (torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in (gamma, beta))
+        out, m, v = ops.batch_norm(xt, gt, bt, None, None, 1e-5, False,
+                                   axis, training=True)
+        g = torch.from_numpy(dy).to(dev)
+        out.backward(g if layout == "nhwc" else g.permute(0, 3, 1, 2))
+        return [t.detach().cpu() for t in (out, m, v, leaf.grad, gt.grad,
+                                           bt.grad)]
+
+    counts = (bs.bn_stats.launches_cl, bs.bn_stats.copies)
+    got = run(cuda)
+    assert (bs.bn_stats.launches_cl, bs.bn_stats.copies) == \
+        (counts[0] + 1, counts[1])
+    for a, b in zip(got, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * max(1.0, b.abs().max()))

@@ -237,8 +237,8 @@ def test_deferred_layers_and_load_errors(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         get_model("resnet18_v1", classes=7, device="cpu").load_parameters(
             str(tmp_path / "r18.params"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("resnet50_v1", layout="NHWC", device="cpu")
+    with pytest.raises(ValueError, match="layout"):
+        get_model("resnet50_v1", layout="HWCN", device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         get_model("vgg16", device="cpu")
 
