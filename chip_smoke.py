@@ -49,7 +49,14 @@ Phases, in order; any failure exits non-zero:
    0.25; 1e-4 at mean 1000, where fp32's own step is 6e-5), and per fp32
    geometry its time beside the plain version, ``torch.var_mean`` (a
    yardstick the port never calls) and the card's bound, and its fp16
-   time beside fp16's bound;
+   time beside fp16's bound.  Every case also runs with the kernel
+   reading its own pivot (``bs.FIRST``, the main path's call; it must give
+   the explicit pivot's bits, twice), the plan it launched is logged, the
+   times are of that call; where the plan folds its slices in a
+   thread-block cluster, the same launch folding through the tickets is
+   timed beside it (the per-forward sums too); the wrapper's host
+   microseconds a call of ``batch_stats`` (forward, and forward plus
+   backward) are timed by ``perf_counter`` over 200 warm calls;
 8. training parity: ResNet-50 v1 (phase 6's seeded weights and
    ``.params`` file) takes 2 SGD steps (lr 0.01, momentum 0.9, wd 1e-4,
    ``SoftmaxCrossEntropyLoss``) at batch 8 on the card and on the CPU
@@ -62,7 +69,14 @@ Phases, in order; any failure exits non-zero:
 9. training: the same model at full width, batch 32 of (3, 224, 224): 3
    warm steps, then 10 timed steps (synchronised): step ms, images/s, peak
    device memory, finite losses, 53 launches per step.  This is the slice's
-   main path: the kernel's ``launches`` in the JSON line count it.
+   main path: the kernel's ``launches`` in the JSON line count it.  One
+   more step (as in phases 18 and 22) holds each of its 53 bn-stats
+   launches against the plain version on the same input.  Its
+   ``[profile]`` (as phases 18 and 22's) counts the ``bn_stats`` kernels
+   of one step against its 53 calls (one launch a call; a step under the
+   profiler's warm-up comes first, and where the trace holds another
+   count it logs which launches have no kernel record) and prints the
+   wrapper's (``_BatchStats``) host ms.
 
 10. BERT pretraining parity: ``bert_base`` at full width (768 units, 12
    heads, vocab 30522) cut to 2 layers, seeded weights, masked LM + next
@@ -160,13 +174,14 @@ Phases, in order; any failure exits non-zero:
    ``amp.convert_model`` of :func:`resnet_v1_symbol` through
    ``Module.forward``, inference at batch 8, card against CPU.
 
-20. bn-stats channels-last entry vs plain: the kernel's NHWC entry
-   (``mxt_bn_stats_cl``) at the nine NHWC BatchNorm geometries of
-   ResNet-50 at batch 32, fp32 and fp16, against its plain version (atol
-   2e-5, as phase 7) and, in fp32, against the NCHW entry on the same data
-   transposed (1e-6: the same pivot element, another summation order);
-   per geometry its time beside the plain version, ``torch.var_mean``
-   over (0, 1, 2) and the bound;
+20. bn-stats channels-last vs plain: the kernel on channels-last data
+   (its ``rows`` route with K = 1) at the nine NHWC BatchNorm geometries
+   of ResNet-50 at batch 32, fp32 and fp16, against its plain version
+   (atol 2e-5, as phase 7) and, in fp32, against the NCHW layout on the
+   same data transposed (1e-6: the same pivot element, another summation
+   order); per geometry its time beside the plain version,
+   ``torch.var_mean`` over (0, 1, 2) and the bound, the own-pivot check
+   and the wrapper's host time as phase 7;
 21. NHWC parity: ResNet-50 v1 ``layout="NHWC"`` at full width and depth,
    phase 6's weights transposed to (O, kh, kw, I) into a ``.params``
    file: fp32 logits at batch 8 on the card against the CPU within 1e-4
@@ -1053,8 +1068,10 @@ def phase_resnet(card):
 def phase_bn_kernel(bs, card):
     """The bn-stats kernel against its plain version, and its times per
     fp32 geometry; returns ({shape: (kernel, plain, var_mean, bound ms,
-    bound_by)}, the largest fp32 error at those shapes, the largest fp16
-    error)."""
+    bound_by, tickets ms)}, {shape: (fp16 kernel, bound ms, bound_by,
+    tickets ms)}, the largest fp32 error at those shapes, the largest fp16
+    error); "tickets ms" is the same launch folding through the tickets
+    where the plan took a cluster, else None."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(s, dt, 0.0, 0.5) for s in RESNET50_BN
@@ -1082,30 +1099,112 @@ def phase_bn_kernel(bs, card):
               f"mean {mean}: {err}")
         line = (f"[bn_stats] {shape} {str(dtype)[6:]} mean {mean:g}: "
                 f"max_abs_err {err:.3e} (tol {tol:g})")
+        part, plan = bn_first_pivot_same(bs, x, 1, m, v)
+        line += part
         if dtype == torch.float16:
             fp16_err = max(fp16_err, err)
             if shape in RESNET50_BN:
-                k16 = device_ms(lambda: bs.bn_stats(x, pivot))
+                k16 = device_ms(lambda: bs.bn_stats(x, bs.FIRST))
                 b16, by16 = bn_stats_bound_ms(shape, dtype)
-                fp16_times[shape] = (k16, b16, by16)
+                t16 = bn_tickets_ms(bs, x, 1, plan)
+                fp16_times[shape] = (k16, b16, by16, t16)
                 line += (f"; kernel {k16:.4f} ms, bound {b16:.4f} ms "
                          f"({by16}), {b16 / k16:.2f} of the bound")
+                line += bn_tickets_part(t16, k16)
         if shape in RESNET50_BN and dtype == torch.float32:
             path_err = max(path_err, err)
-            k = device_ms(lambda: bs.bn_stats(x, pivot))
+            k = device_ms(lambda: bs.bn_stats(x, bs.FIRST))
             pl = device_ms(lambda: bs._reference(x, pivot))
             lib = device_ms(lambda: torch.var_mean(x, dim=(0, 2, 3),
                                                    unbiased=False))
             bound, by = bn_stats_bound_ms(shape, dtype)
-            times[shape] = (k, pl, lib, bound, by)
+            t = bn_tickets_ms(bs, x, 1, plan)
+            times[shape] = (k, pl, lib, bound, by, t)
             line += (f"; kernel {k:.4f} ms, plain {pl:.4f} ms, var_mean "
                      f"{lib:.4f} ms, bound {bound:.4f} ms ({by}), "
                      f"{bound / k:.2f} of the bound")
+            line += bn_tickets_part(t, k)
         log(line)
     log(f"[bn_stats] timed on {card}, inputs warm in L2 where they fit "
-        f"(the real caller reads what the convolution just wrote); fp16 "
+        f"(the real caller reads what the convolution just wrote), the "
+        f"kernel reading its own pivot (bs.FIRST, as the main path); fp16 "
         f"max_abs_err {fp16_err:.3e}")
+    bn_wrapper_host("[bn_stats]", bs, (32, 256, 14, 14), 1)
     return times, fp16_times, path_err, fp16_err
+
+
+def bn_first_pivot_same(bs, x, axis, m, v):
+    """Checks that the kernel reading its own pivot (``bs.FIRST``, the
+    main path's call) gives the bits of the explicit pivot tensor ``m, v``
+    were computed with, and that a second call gives them again; returns
+    the plan it launched, as a log line's part and as the kernel gave it."""
+    m1, v1, plan = bs.plan(x, bs.FIRST, axis)
+    m2, v2 = bs.bn_stats(x, bs.FIRST, axis)
+    check(torch.equal(m, m1) and torch.equal(v, v1),
+          f"bn_stats with the kernel's own pivot differs from the explicit "
+          f"pivot at {tuple(x.shape)} {x.dtype}")
+    check(torch.equal(m1, m2) and torch.equal(v1, v2),
+          f"bn_stats is not deterministic at {tuple(x.shape)} {x.dtype}")
+    route = "wide" if plan["wide"] else "rows"
+    fold = " (cluster)" if plan["cluster"] else ""
+    return (f"; own pivot == explicit, bitwise; plan {route} "
+            f"V={plan['vec']} G={plan['group']} S={plan['splits']}{fold}",
+            plan)
+
+
+def bn_tickets_ms(bs, x, axis, plan):
+    """Where ``plan`` folds its slices in a thread-block cluster: the
+    device ms of the same launch folding them through the tickets (the
+    fold of larger S), else None."""
+    if not plan["cluster"]:
+        return None
+    return device_ms(lambda: bs.plan(x, bs.FIRST, axis,
+                                     splits=plan["splits"], tickets=True))
+
+
+def bn_tickets_part(tickets_ms, ms):
+    """The log line's part comparing the cluster fold with the tickets."""
+    if tickets_ms is None:
+        return ""
+    return (f"; the same S through the tickets {tickets_ms:.4f} ms "
+            f"({tickets_ms / ms:.2f}x the cluster fold's)")
+
+
+def bn_wrapper_host(tag, bs, shape, axis, calls=200):
+    """Host microseconds a call of ``batch_stats`` (the training path's
+    autograd node around the kernel), forward and forward plus backward,
+    by ``time.perf_counter`` over ``calls`` calls on a warm input without
+    the profiler; the input is small, so that the host, not the device,
+    sets the pace."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(shape, generator=gen, device=dev).requires_grad_()
+    gm, gv = (torch.randn(shape[axis], generator=gen, device=dev)
+              for _ in range(2))
+
+    def forward():
+        return bs.batch_stats(x, bs.FIRST, axis)
+
+    def forward_backward():
+        torch.autograd.backward(forward(), (gm, gv))
+
+    us = []
+    for fn in (forward, forward_backward):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        us.append(((t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6))
+    log(f"{tag} wrapper host time at {shape} (axis {axis}), {calls} warm "
+        f"calls: batch_stats forward {us[0][0]:.1f} us a call (until the "
+        f"device is done {us[0][1]:.1f}), forward and backward "
+        f"{us[1][0]:.1f} us a call (until done {us[1][1]:.1f})")
+    return us
 
 
 @contextlib.contextmanager
@@ -1345,6 +1444,7 @@ def phase_train(bs, path, card, amp_on=False, layout="NCHW"):
         f"on {card}")
     log(f"{tag} mean loss per step: {[round(l, 4) for l in losses]}")
     try:
+        check_bn_calls(bs, step, tag)
         profile_train_step(step, step_ms)
     finally:
         amp.deinit()
@@ -1354,17 +1454,103 @@ def phase_train(bs, path, card, amp_on=False, layout="NCHW"):
     return launches, counts, step_ms, peak
 
 
+@contextlib.contextmanager
+def bn_launch_hook(bs, hook):
+    """Calls ``hook(x, pivot, axis, mean, var)`` after every launch of the
+    bn-stats kernel inside the block (the wrapper's counts are kept)."""
+    real = bs._launch
+
+    def hooked(x, pivot, kind, axis, *rest):
+        mean, var = real(x, pivot, kind, axis, *rest)
+        hook(x, pivot, axis, mean, var)
+        return mean, var
+
+    bs._launch = hooked
+    try:
+        yield
+    finally:
+        bs._launch = real
+
+
+def check_bn_calls(bs, step, tag):
+    """One more training step in which the statistics of every bn-stats
+    launch are held against the plain version on the same input (1e-4 of
+    max(1, |mean|, var), phase 7's tolerance at mean 1000): the kernel ran,
+    and ran right, at each of the path's BatchNorm inputs."""
+    errs = []
+
+    def compare(x, pivot, axis, mean, var):
+        rm, rv = bs._reference(x, pivot, axis)
+        scale = max(1.0, rm.abs().max().item(), rv.max().item())
+        errs.append((max((mean - rm).abs().max().item(),
+                         (var - rv).abs().max().item()) / scale,
+                     tuple(x.shape)))
+
+    with bn_launch_hook(bs, compare):
+        step()
+    torch.cuda.synchronize()
+    worst = max(errs)
+    check(len(errs) == BN_PER_FORWARD and all(math.isfinite(e) and e <= 1e-4
+                                              for e, _ in errs),
+          f"{tag} {len(errs)} bn-stats launches in a checked step (want "
+          f"{BN_PER_FORWARD}), worst {worst}")
+    log(f"{tag} every bn-stats launch of one step against the plain "
+        f"version: {len(errs)} launches, worst error {worst[0]:.3e} of "
+        f"max(1, |mean|, var) at {worst[1]} (tol 1e-4)")
+
+
+def _trace_gaps(prof):
+    """What a trace holds against what was launched: the runtime launches
+    with no kernel record, by their place among the step's launches and
+    API name.  Reads the trace's JSON export."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    path = BUILD / "profile_trace.json"
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink()
+    kernels = {e["args"].get("correlation"): e["name"] for e in events
+               if e.get("cat") == "kernel"}
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and "Launch" in e.get("name", "")),
+                      key=lambda e: e["ts"])
+    lost = [(i, e["name"]) for i, e in enumerate(launches)
+            if e["args"].get("correlation") not in kernels]
+    return (f"{len(launches)} runtime launches, {len(kernels)} kernel "
+            f"records ({sum('bn_stats' in k for k in kernels.values())} "
+            f"bn_stats); launches with no kernel record: {lost[:12]}")
+
+
 def profile_train_step(step, step_ms, top=12):
     """Device time by kernel over one training step (CUPTI through
-    torch.profiler) beside the timed steps' mean wall time."""
+    torch.profiler) beside the timed steps' mean wall time.  A step under
+    the profiler's warm-up comes first: a trace started at the step lost
+    the records of its first ~10 kernels, which in the NHWC step hold its
+    first ``bn_stats`` launch."""
     from torch.autograd import DeviceType
+    from mxnet_tpu_torch.ops import bn_stats
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    warm_then_record = torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                               repeat=1)
+    with torch.profiler.profile(activities=acts,
+                                schedule=warm_then_record) as prof:
         step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        prof.step()
+        calls = bn_stats.bn_stats.launches
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+    calls = bn_stats.bn_stats.launches - calls
+    check(calls == BN_PER_FORWARD, f"{calls} bn-stats calls in the profiled "
+                                   f"step (want {BN_PER_FORWARD})")
+    # the schedule's "ProfilerStep#" range spans the step on the host and
+    # on the device: it is neither a kernel nor a host op of the step
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("ProfilerStep")]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
         log(f"[profile] train step: {step_ms:.3f} ms wall; device time not "
@@ -1372,20 +1558,31 @@ def profile_train_step(step, step_ms, top=12):
         return
     bn_ms = sum(e.self_device_time_total for e in kernels
                 if "bn_stats" in e.key) / 1e3
+    bn_launches = sum(e.count for e in kernels if "bn_stats" in e.key)
     log(f"[profile] train step batch {TRAIN_BATCH}: {step_ms:.3f} ms wall "
         f"(mean of {TIMED_STEPS}), device busy {busy_ms:.3f} ms, idle share "
         f"{1 - busy_ms / step_ms:.3f}, {len(kernels)} kernels, "
         f"{sum(e.count for e in kernels)} launches; bn-stats kernels "
-        f"{bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy); "
+        f"{bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy), {bn_launches} "
+        f"launches for the step's {calls} calls; "
         f"{_kernel_share(kernels, busy_ms)}")
+    if bn_launches != calls:
+        log(f"[profile] the trace holds {bn_launches} bn_stats kernel "
+            f"records for the step's {calls} calls: {_trace_gaps(prof)}")
+    check(bn_launches == calls,
+          f"{bn_launches} bn_stats kernels for {calls} calls in one training "
+          f"step (want one launch a call)")
     log(f"[profile] train step convolutions by kind: "
         f"{_conv_kinds(kernels)}")
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type != DeviceType.CUDA),
-                  key=lambda e: -e.self_cpu_time_total)[:6]
+    host_ops = [e for e in events if e.device_type != DeviceType.CUDA]
+    host = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:6]
     log("[profile] train step host ops by self CPU ms: " + ", ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} x{e.count}"
         for e in host))
+    wrapper = [e for e in host_ops if "_BatchStats" in e.key]
+    log("[profile] train step bn-stats wrapper by self CPU ms: " + (
+        ", ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} "
+                  f"x{e.count}" for e in wrapper) or "not in the trace"))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
@@ -1428,10 +1625,17 @@ def bn_record(times, fp16_times, counts, err, fp16_err, launches,
     check(len(by) == 1, f"bounds of mixed kinds {by}")
     fp16 = [sum(fp16_times[s][i] * n for s, n in counts.items())
             for i in range(2)]
+    # the same sums with the tickets folding where the plan took a cluster
+    tickets = [sum((t[j] if t[j] is not None else t[0]) * n
+                   for s, n in counts.items() for t in [ts[s]])
+               for ts, j in ((times, 5), (fp16_times, 3))]
     log(f"[{name}] one batch-{TRAIN_BATCH} forward ({sum(counts.values())}"
         f" launches): kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, "
-        f"var_mean {total[2]:.4f} ms, bound {total[3]:.4f} ms; fp16 kernel "
-        f"{fp16[0]:.4f} ms, bound {fp16[1]:.4f} ms")
+        f"var_mean {total[2]:.4f} ms, bound {total[3]:.4f} ms "
+        f"({total[3] / total[0]:.3f} of it); fp16 kernel {fp16[0]:.4f} ms, "
+        f"bound {fp16[1]:.4f} ms ({fp16[1] / fp16[0]:.3f} of it); with the "
+        f"tickets in place of the cluster fold {tickets[0]:.4f} ms fp32, "
+        f"{tickets[1]:.4f} ms fp16")
     layout = "NHWC" if name == "bn_stats_cl" else "NCHW"
     return {"name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/bn_stats.cu",
@@ -2777,11 +2981,14 @@ def phase_bn_kernel_cl(bs, card):
                   f"{shape} {dtype}: {err}")
             line = (f"[bn_stats_cl] {shape} {str(dtype)[6:]}: max_abs_err "
                     f"{err:.3e} (tol 2e-05)")
-            k = device_ms(lambda: bs.bn_stats(x, pivot, 3))
+            part, plan = bn_first_pivot_same(bs, x, 3, m, v)
+            line += part
+            k = device_ms(lambda: bs.bn_stats(x, bs.FIRST, 3))
             bound, by = bn_stats_bound_ms(shape, dtype, 3)
+            t = bn_tickets_ms(bs, x, 3, plan)
             if dtype == torch.float16:
                 fp16_err = max(fp16_err, err)
-                fp16_times[shape] = (k, bound, by)
+                fp16_times[shape] = (k, bound, by, t)
             else:
                 path_err = max(path_err, err)
                 cf = x.permute(0, 3, 1, 2).contiguous()
@@ -2794,13 +3001,15 @@ def phase_bn_kernel_cl(bs, card):
                 pl = device_ms(lambda: bs._reference(x, pivot, 3))
                 lib = device_ms(lambda: torch.var_mean(
                     x, dim=(0, 1, 2), unbiased=False))
-                times[shape] = (k, pl, lib, bound, by)
+                times[shape] = (k, pl, lib, bound, by, t)
                 line += (f", vs the NCHW entry {e2:.3e} (tol 1e-06); plain "
                          f"{pl:.4f} ms, var_mean {lib:.4f} ms")
             log(line + f"; kernel {k:.4f} ms, bound {bound:.4f} ms ({by}), "
-                       f"{bound / k:.2f} of the bound")
-    log(f"[bn_stats_cl] timed on {card}; NHWC vs NCHW entry max "
-        f"{entry_err:.3e}")
+                       f"{bound / k:.2f} of the bound" +
+                bn_tickets_part(t, k))
+    log(f"[bn_stats_cl] timed on {card}, the kernel reading its own "
+        f"pivot; NHWC vs NCHW entry max {entry_err:.3e}")
+    bn_wrapper_host("[bn_stats_cl]", bs, (32, 14, 14, 256), 3)
     return times, fp16_times, path_err, fp16_err
 
 

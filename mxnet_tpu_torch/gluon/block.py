@@ -16,7 +16,13 @@ naming gives.  A layer built with an unknown input width (``in_channels=0``,
 ``allow_deferred_init`` (``mxnet_tpu/gluon/parameter.py:28-37``): its shape
 is fixed by the first forward, on the input's device, or by
 ``load_parameters``, from the file.  ``initialize()`` fills such a
-parameter when it is materialised.  ``collect_params()`` gives each of them
+parameter when it is materialised.  As in Gluon
+(``mxnet_tpu/gluon/parameter.py:127-131``), a tensor that ``initialize``
+filled or ``load_parameters`` loaded is initialised: a later
+``initialize()`` keeps it, with MXNet's warning, unless
+``force_reinit=True``.  A layer's ``*_initializer`` arguments name the
+initializer of one parameter (``_param_inits``); ``initialize``'s own
+initializer fills the rest.  ``collect_params()`` gives each of them
 a Gluon ``Parameter`` (``parameter.py``) under the same names, for
 ``Trainer``.
 
@@ -28,6 +34,7 @@ still returns the tensor (ROADMAP.md).
 from __future__ import annotations
 
 import re
+import warnings
 
 import torch
 from torch import nn
@@ -35,7 +42,7 @@ from torch.nn.parameter import UninitializedTensorMixin
 
 from .. import autograd
 from ..context import as_device
-from ..initializer import Uniform
+from ..initializer import Initializer, Uniform, create
 from ..ndarray import serialization
 from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
@@ -74,6 +81,39 @@ def _own_state(module):
     yield from module.named_buffers(recurse=False)
 
 
+def _one_device(ctx):
+    """The device of ``ctx`` (a Context, a device, or MXNet's list of
+    one), or None."""
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise ValueError(f"the port places a block on one device, got "
+                             f"{ctx}")
+        ctx = ctx[0]
+    return None if ctx is None else as_device(ctx)
+
+
+# attribute set on a tensor that ``initialize`` filled or a file loaded
+_INITIALIZED = "_mx_initialized"
+
+
+def _fill(module, name, t, init, generator):
+    """Fill ``t`` (``module``'s attribute ``name``) with the layer's own
+    initializer for it, if it names one, else with ``init``; the
+    per-parameter one skips the name rules, as Gluon's does
+    (``mxnet_tpu/gluon/parameter.py:161-171``)."""
+    own = getattr(module, "_param_inits", {}).get(name)
+    if own is None:
+        init(name, t.data, generator)
+    else:
+        own = create(own)
+        if isinstance(own, Initializer):
+            with torch.no_grad():
+                own._init_weight(name, t.data, generator)
+        else:
+            own(name, t.data, generator)
+    setattr(t, _INITIALIZED, True)
+
+
 class HybridBlock(nn.Module):
     """A Gluon-style block: ``forward`` is the eager body, parameters are
     ``nn.Parameter``s, ``initialize`` fills them from a generator."""
@@ -100,27 +140,34 @@ class HybridBlock(nn.Module):
     def hybridize(self, active=True, **kwargs):
         """Accepted for API parity; eager mode is the only mode."""
 
-    def initialize(self, init=None, ctx=None, generator=None):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None):
         """Fill every parameter and buffer with ``init`` (default
-        :class:`Uniform`), dispatching on its name as MXNet does; a deferred
-        one is filled when it materialises.  ``ctx`` (a Context or device;
-        MXNet's list of one is taken too) moves them there first; a
-        ``generator`` must be on that device."""
+        :class:`Uniform`), dispatching on its name as MXNet does, or with
+        the initializer its layer names for it; a deferred one is filled
+        when it materialises.  One already initialised (by an earlier call
+        or ``load_parameters``) is kept, with a warning, unless
+        ``force_reinit`` (``mxnet_tpu/gluon/block.py:517-523``).  ``ctx``
+        (a Context or device; MXNet's list of one is taken too) moves the
+        ones filled here there first; a ``generator`` must be on that
+        device.  ``verbose`` is taken for MXNet's signature and changes
+        nothing (the JAX package's initializers only record it)."""
         init = Uniform() if init is None else init
-        if isinstance(ctx, (list, tuple)):
-            if len(ctx) != 1:
-                raise ValueError("the port places a block on one device, "
-                                 f"got {ctx}")
-            ctx = ctx[0]
-        device = None if ctx is None else as_device(ctx)
+        device = _one_device(ctx)
         for module in self.modules():
             for name, t in _own_state(module):
+                if getattr(t, _INITIALIZED, False) and not force_reinit:
+                    warnings.warn(f"Parameter '{name}' is already "
+                                  f"initialized, ignoring. Set "
+                                  f"force_reinit=True to re-initialize.",
+                                  stacklevel=2)
+                    continue
                 if is_deferred(t):
                     module._deferred_init = (init, generator)
                     continue
                 if device is not None:
                     t.data = t.data.to(device)
-                init(name, t.data, generator)
+                _fill(module, name, t, init, generator)
 
     def _materialize(self, shapes, device):
         """Give each deferred ``{attribute: shape}`` its shape on
@@ -135,7 +182,7 @@ class HybridBlock(nn.Module):
                 t.materialize(tuple(shape), device=device)
                 if self._deferred_init is not None:
                     init, generator = self._deferred_init
-                    init(name, t.data, generator)
+                    _fill(self, name, t, init, generator)
 
     # ------------------------------------------------------------ parameters
     def _collect_params_with_prefix(self):
@@ -180,39 +227,63 @@ class HybridBlock(nn.Module):
         serialization.save(filename,
                            {k: v.detach() for k, v in params.items()})
 
-    def load_parameters(self, filename, cast_dtype=False):
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
         """Load a file written by ``save_parameters`` (this package's or the
-        JAX package's; ``mxnet_tpu/gluon/block.py:276``).  Names must match
-        exactly.  Each value lands on its parameter's device; a deferred
-        parameter takes the file's shape there.  Dtypes must match unless
-        ``cast_dtype``, which casts each value to its parameter's dtype
-        (the JAX package's ``dtype_source="current"``)."""
+        JAX package's; ``mxnet_tpu/gluon/block.py:276-312``).  A parameter
+        the file lacks raises unless ``allow_missing`` (it keeps its value),
+        a name the block lacks unless ``ignore_extra``; a file and a block
+        both without parameters load as nothing.  Each value lands on
+        ``ctx`` if given (a Context, a device or a list of one), else on
+        its parameter's device; a deferred parameter takes the file's
+        shape there.  Dtypes must match unless ``cast_dtype``: then
+        ``dtype_source="current"`` casts each value to its parameter's
+        dtype, ``"saved"`` gives the parameter the file's.  A loaded
+        parameter counts as initialised (see :meth:`initialize`)."""
+        if dtype_source not in ("current", "saved"):
+            raise ValueError(f"dtype_source must be 'current' or 'saved', "
+                             f"got {dtype_source!r}")
         loaded = serialization.load(filename)
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
         if not isinstance(loaded, dict):
             raise ValueError(f"{filename} holds unnamed arrays")
-        params = self._collect_params_with_prefix()
         missing = [k for k in params if k not in loaded]
         extra = [k for k in loaded if k not in params]
-        if missing or extra:
+        if (missing and not allow_missing) or (extra and not ignore_extra):
             raise KeyError(
                 f"{filename} does not match this block: parameters "
                 f"{missing[:8]} are missing from it, and it holds "
-                f"{extra[:8]}, which the block does not have")
+                f"{extra[:8]}, which the block does not have "
+                f"(allow_missing, ignore_extra)")
+        device = _one_device(ctx)
         with torch.inference_mode(False), torch.no_grad():
             for name, t in params.items():
+                if name not in loaded:
+                    continue
                 value = loaded[name]
-                if cast_dtype:
+                saved = cast_dtype and dtype_source == "saved"
+                if cast_dtype and not saved:
                     value = value.to(t.dtype)
-                if value.dtype != t.dtype:
+                elif saved and not is_deferred(t):
+                    t.data = t.data.to(value.dtype)
+                want = value.dtype if saved else t.dtype
+                if value.dtype != want:
                     raise TypeError(f"{name}: file has {value.dtype}, the "
                                     f"parameter is {t.dtype}")
                 if is_deferred(t):
-                    t.materialize(tuple(value.shape))
+                    t.materialize(tuple(value.shape), device=device,
+                                  dtype=want)
                 elif tuple(t.shape) != tuple(value.shape):
                     raise ValueError(
                         f"{name}: file has shape {tuple(value.shape)}, the "
                         f"parameter {tuple(t.shape)}")
+                elif device is not None:
+                    t.data = t.data.to(device)
                 t.copy_(value)
+                setattr(t, _INITIALIZED, True)
 
     # --------------------------------------------------------------- serving
     def compile_grid(self, make_example, buckets):

@@ -1,12 +1,16 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``).
 
-Parameters are allocated on ``device`` at construction and filled by
-``HybridBlock.initialize``.  ``Dense(in_units=0)`` and
-``BatchNorm(in_channels=0)`` defer their shapes to the first forward or to
-``load_parameters``, as Gluon does.  Each layer that the JAX package runs
-through an op on one of AMP's lists (``FullyConnected``, ``LayerNorm``,
-``BatchNorm``) passes its inputs through AMP's policy
-(``ops.registry.amp_inputs``) first.
+Each layer takes the JAX package's arguments in its order, with its
+defaults (``mxnet_tpu/gluon/nn/basic_layers.py``), but for ``prefix`` and
+``params``; ``dtype`` is a name (``"float32"``) or a ``torch.dtype``, and
+``device`` (keyword only) is where the parameters are allocated at
+construction.  ``HybridBlock.initialize`` fills them, with a layer's
+``*_initializer`` for its own.  ``Dense(in_units=0)``,
+``BatchNorm(in_channels=0)`` and ``LayerNorm(in_channels=0)`` defer their
+shapes to the first forward or to ``load_parameters``, as Gluon does.
+Each layer that the JAX package runs through an op on one of AMP's lists
+(``FullyConnected``, ``LayerNorm``, ``BatchNorm``) passes its inputs
+through AMP's policy (``ops.registry.amp_inputs``) first.
 """
 from __future__ import annotations
 
@@ -69,15 +73,19 @@ class Dense(HybridBlock):
     applied to the output as ``mxnet_tpu/gluon/nn/basic_layers.py:126-127``
     does."""
 
-    def __init__(self, units, in_units=0, activation=None, use_bias=True,
-                 flatten=True, dtype=torch.float32, device=None):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, *, device=None):
         super().__init__()
+        dtype = torch_dtype(dtype)
         self._units = units
         self._flatten = flatten
         self.weight = _param((units, in_units), dtype, device)
         self.bias = nn.Parameter(torch.empty(units, dtype=dtype,
                                              device=device)) \
             if use_bias else None
+        self._param_inits = {"weight": weight_initializer,
+                             "bias": bias_initializer}
         if activation is not None and activation not in ops._ACT:
             raise ValueError(f"unknown activation {activation!r}")
         self._act_type = activation
@@ -95,45 +103,65 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Dropout; the identity unless ``autograd.is_training()``."""
+    """Dropout; the identity unless ``autograd.is_training()``.  ``axes``
+    shares the mask along those axes (the ``Dropout`` op's)."""
 
-    def __init__(self, rate):
+    def __init__(self, rate, axes=()):
         super().__init__()
         self._rate = rate
+        self._axes = tuple(axes)
 
     def forward(self, x):
-        if autograd.is_training() and self._rate > 0:
-            return F.dropout(x, self._rate, training=True)
-        return x
+        if not autograd.is_training() or self._rate <= 0:
+            return x
+        if self._axes:
+            return ops._dropout_op(x, self._rate, axes=self._axes,
+                                   __training__=True)
+        return F.dropout(x, self._rate, training=True)
 
 
 class Embedding(HybridBlock):
-    """Index -> vector lookup over a ``(input_dim, output_dim)`` table."""
+    """Index -> vector lookup over a ``(input_dim, output_dim)`` table.
+    ``sparse_grad`` is taken, and the gradient stays dense (sparse storage
+    is ROADMAP.md queue 1 item 2.5)."""
 
-    def __init__(self, input_dim, output_dim, dtype=torch.float32,
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, *,
                  device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(input_dim, output_dim,
-                                               dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.empty(
+            input_dim, output_dim, dtype=torch_dtype(dtype), device=device))
+        self._param_inits = {"weight": weight_initializer}
 
     def forward(self, x):
         return ops.embedding(x, self.weight)
 
 
 class LayerNorm(HybridBlock):
-    """Layer normalisation over ``axis`` with learnable ``gamma``/``beta``."""
+    """Layer normalisation over ``axis`` with learnable ``gamma``/``beta``;
+    ``in_channels=0`` defers their width to the first forward.
+    ``center=False`` keeps beta at its initial zero and ``scale=False``
+    gamma at one; neither then takes a gradient
+    (``mxnet_tpu/gluon/nn/basic_layers.py:330-352``)."""
 
-    def __init__(self, in_channels, axis=-1, epsilon=1e-5,
-                 dtype=torch.float32, device=None):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, *, dtype=torch.float32, device=None):
         super().__init__()
+        dtype = torch_dtype(dtype)
         self._axis = axis
         self._epsilon = epsilon
-        self.gamma = nn.Parameter(torch.empty(in_channels, dtype=dtype,
-                                              device=device))
-        self.beta = nn.Parameter(torch.empty(in_channels, dtype=dtype,
-                                             device=device))
+        self.gamma = _param((in_channels,), dtype, device,
+                            requires_grad=scale)
+        self.beta = _param((in_channels,), dtype, device,
+                           requires_grad=center)
+        self._param_inits = {"gamma": gamma_initializer,
+                             "beta": beta_initializer}
 
     def forward(self, x):
+        if is_deferred(self.gamma):
+            c = (x.shape[self._axis],)
+            self._materialize({"gamma": c, "beta": c}, x.device)
         x, gamma, beta = amp_inputs("LayerNorm", x, self.gamma, self.beta)
         return ops.layer_norm(x, gamma, beta, self._axis, self._epsilon)
 
@@ -152,9 +180,17 @@ class BatchNorm(HybridBlock):
     into it, as MXNet's op reads only the autograd flag."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
-                 scale=True, use_global_stats=False, in_channels=0,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0, *,
                  dtype=torch.float32, device=None):
         super().__init__()
+        dtype = torch_dtype(dtype)
+        self._param_inits = {"gamma": gamma_initializer,
+                             "beta": beta_initializer,
+                             "running_mean": running_mean_initializer,
+                             "running_var": running_variance_initializer}
         self._axis = axis
         self._momentum = momentum
         self._epsilon = epsilon

@@ -7,7 +7,10 @@ follows the data's layout, ``(channels, in_channels / groups, *kernel)``
 for NCW/NCHW/NCDHW and ``(channels, *kernel, in_channels / groups)`` for
 NWC/NHWC/NDHWC (``mxnet_tpu/gluon/nn/conv_layers.py:70-89``), so a JAX
 ``.params`` file of either layout loads as it is.  ``in_channels=0``
-defers the weight to the first forward or to ``load_parameters``.
+defers the weight to the first forward or to ``load_parameters``.  Each
+layer takes the JAX package's arguments in its order, with its defaults,
+but for ``prefix`` and ``params``; ``dtype`` (a name or a ``torch.dtype``)
+and ``device`` are keyword only.
 Pooling is 2-D only (NCHW, NHWC); 1-D and 3-D pooling wait for ROADMAP.md
 queue 1 item 6, as the transposed convolutions do.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...base import torch_dtype
 from ...ops import nn as ops
 from ...ops.registry import amp_inputs
 from ..block import HybridBlock, is_deferred
@@ -36,8 +40,10 @@ class _Conv(HybridBlock):
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
-                 use_bias=True, dtype=torch.float32, device=None):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", dtype=torch.float32, device=None):
         super().__init__()
+        dtype = torch_dtype(dtype)
         nd = len(kernel_size)
         self._channels = channels
         self._kernel = tuple(kernel_size)
@@ -51,6 +57,8 @@ class _Conv(HybridBlock):
         self.bias = nn.Parameter(torch.empty(channels, dtype=dtype,
                                              device=device)) \
             if use_bias else None
+        self._param_inits = {"weight": weight_initializer,
+                             "bias": bias_initializer}
         self.act = Activation(activation) if activation is not None \
             else None
 
@@ -76,12 +84,14 @@ class Conv1D(_Conv):
 
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout="NCW", activation=None,
-                 use_bias=True, in_channels=0, dtype=torch.float32,
-                 device=None):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, *,
+                 dtype=torch.float32, device=None):
         _check_layout(layout, ("NCW", "NWC"))
         super().__init__(channels, ops._tuple(kernel_size, 1, 1), strides,
                          padding, dilation, groups, layout, in_channels,
-                         activation, use_bias, dtype, device)
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, dtype, device)
 
 
 class Conv2D(_Conv):
@@ -89,12 +99,14 @@ class Conv2D(_Conv):
 
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", activation=None,
-                 use_bias=True, in_channels=0, dtype=torch.float32,
-                 device=None):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, *,
+                 dtype=torch.float32, device=None):
         _check_layout(layout, ("NCHW", "NHWC"))
         super().__init__(channels, ops._tuple(kernel_size, 2, 1), strides,
                          padding, dilation, groups, layout, in_channels,
-                         activation, use_bias, dtype, device)
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, dtype, device)
 
 
 class Conv3D(_Conv):
@@ -103,11 +115,13 @@ class Conv3D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1, 1),
                  padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
                  layout="NCDHW", activation=None, use_bias=True,
-                 in_channels=0, dtype=torch.float32, device=None):
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, *, dtype=torch.float32, device=None):
         _check_layout(layout, ("NCDHW", "NDHWC"))
         super().__init__(channels, ops._tuple(kernel_size, 3, 1), strides,
                          padding, dilation, groups, layout, in_channels,
-                         activation, use_bias, dtype, device)
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, dtype, device)
 
 
 class _Pooling(HybridBlock):

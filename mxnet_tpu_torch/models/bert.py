@@ -41,8 +41,10 @@ class MultiHeadAttention(HybridBlock):
                              f"num_heads={num_heads}")
         self._units = units
         self._num_heads = num_heads
-        self.qkv = nn.Dense(units * 3, units, flatten=False, device=device)
-        self.proj = nn.Dense(units, units, flatten=False, device=device)
+        self.qkv = nn.Dense(units * 3, flatten=False, in_units=units,
+                            device=device)
+        self.proj = nn.Dense(units, flatten=False, in_units=units,
+                             device=device)
         self.dropout = nn.Dropout(dropout)
 
     def _split_heads(self, x):
@@ -80,13 +82,13 @@ class PositionwiseFFN(HybridBlock):
 
     def __init__(self, units, hidden_size, dropout=0.0, device=None):
         super().__init__()
-        self.ffn_1 = nn.Dense(hidden_size, units, flatten=False,
+        self.ffn_1 = nn.Dense(hidden_size, flatten=False, in_units=units,
                               device=device)
         self.activation = nn.GELU()
-        self.ffn_2 = nn.Dense(units, hidden_size, flatten=False,
+        self.ffn_2 = nn.Dense(units, flatten=False, in_units=hidden_size,
                               device=device)
         self.dropout = nn.Dropout(dropout)
-        self.layer_norm = nn.LayerNorm(units, device=device)
+        self.layer_norm = nn.LayerNorm(in_channels=units, device=device)
 
     def forward(self, x):
         out = self.dropout(self.ffn_2(self.activation(self.ffn_1(x))))
@@ -102,7 +104,7 @@ class TransformerEncoderCell(HybridBlock):
         self.attention = MultiHeadAttention(units, num_heads, dropout,
                                             device=device)
         self.attn_dropout = nn.Dropout(dropout)
-        self.attn_norm = nn.LayerNorm(units, device=device)
+        self.attn_norm = nn.LayerNorm(in_channels=units, device=device)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout,
                                    device=device)
 
@@ -150,22 +152,22 @@ class BERTModel(HybridBlock):
         self.token_type_embed = nn.Embedding(token_type_vocab_size, units,
                                              device=device)
         self.position_embed = nn.Embedding(max_length, units, device=device)
-        self.embed_norm = nn.LayerNorm(units, device=device)
+        self.embed_norm = nn.LayerNorm(in_channels=units, device=device)
         self.embed_dropout = nn.Dropout(dropout)
         self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
                                    dropout, device=device)
         if use_pooler:
-            self.pooler = nn.Dense(units, units, activation="tanh",
-                                   flatten=False, device=device)
+            self.pooler = nn.Dense(units, activation="tanh", flatten=False,
+                                   in_units=units, device=device)
         if use_decoder:
-            self.decoder_transform = nn.Dense(units, units, flatten=False,
-                                              device=device)
+            self.decoder_transform = nn.Dense(units, flatten=False,
+                                              in_units=units, device=device)
             self.decoder_act = nn.GELU()
-            self.decoder_norm = nn.LayerNorm(units, device=device)
+            self.decoder_norm = nn.LayerNorm(in_channels=units, device=device)
             self.decoder_bias = torch.nn.Parameter(
                 torch.empty(vocab_size, device=device))
         if use_classifier:
-            self.nsp_classifier = nn.Dense(2, units, flatten=False,
+            self.nsp_classifier = nn.Dense(2, flatten=False, in_units=units,
                                            device=device)
 
     def forward(self, inputs, token_types=None, valid_mask=None,
@@ -203,8 +205,8 @@ class BERTClassifier(HybridBlock):
         device = bert.word_embed.weight.device
         self.classifier = nn.HybridSequential()
         self.classifier.add(nn.Dropout(dropout))
-        self.classifier.add(nn.Dense(num_classes, bert._units,
-                                     flatten=False, device=device))
+        self.classifier.add(nn.Dense(num_classes, flatten=False,
+                                     in_units=bert._units, device=device))
 
     def forward(self, inputs, token_types=None, valid_mask=None):
         _, pooled = self.bert(inputs, token_types, valid_mask)[:2]

@@ -216,17 +216,28 @@ class NDArray:
 
     # --------------------------------------------------------------- indexing
     def __getitem__(self, key):
-        key = _index_key(key, self._data)
-        return NDArray(_own(self._data[key], (self._data,)))
+        key, flips = _index_key(key, self._data)
+        data = self._data.flip(flips) if flips else self._data
+        return NDArray(_own(data[key], (self._data,)))
 
     def __setitem__(self, key, value):
-        key = _index_key(key, self._data)
+        key, flips = _index_key(key, self._data)
         if isinstance(value, NDArray):
             value = value._data.to(self._data.device)
         elif isinstance(value, (np.ndarray, list)):
             value = torch.as_tensor(np.asarray(value),
                                     device=self._data.device)
-        if _rebinds(self):
+        if flips:
+            # write the flipped copy, then flip it back
+            res = self._data.flip(flips)
+            res[key] = value
+            res = res.flip(flips)
+            if _rebinds(self):
+                self._data = res
+            else:
+                with torch.no_grad():
+                    self._data.copy_(res)
+        elif _rebinds(self):
             res = self._data.clone()
             res[key] = value
             self._data = res
@@ -503,12 +514,15 @@ def _index_tensor(k, device):
 
 
 def _index_key(key, data):
-    """``key`` as torch indexes ``data``: index arrays as tensors on its
-    device, clamped into their axis as the JAX package's gather clamps
-    (an out-of-range gather on the card would be a device fault), negative
-    entries counting from the end."""
+    """``(key as torch indexes data, axes to flip first)``: index arrays as
+    tensors on its device, clamped into their axis as the JAX package's
+    gather clamps (an out-of-range gather on the card would be a device
+    fault), negative entries counting from the end.  Torch takes no
+    negative slice step, so a slice with one becomes the positive-step
+    slice of the same elements of ``data`` flipped along that axis
+    (``x[::-1]`` is ``x.flip(0)[0:n:1]``), which keeps the gradient."""
     keys = key if isinstance(key, tuple) else (key,)
-    out, dim = [], 0
+    out, flips, dim = [], [], 0
     for pos, k in enumerate(keys):
         if k is None or isinstance(k, (bool, np.bool_)):
             out.append(k)          # a new axis (numpy's rule for a bool)
@@ -532,9 +546,16 @@ def _index_key(key, data):
                     not -data.shape[dim] <= k < data.shape[dim]:
                 raise IndexError(f"index {k} is out of bounds for axis "
                                  f"{dim} with size {data.shape[dim]}")
+            if isinstance(k, slice) and k.step is not None and \
+                    k.step < 0 and dim < data.dim():
+                n = data.shape[dim]
+                start, stop, step = k.indices(n)
+                # element i of the axis is element n - 1 - i of the flip
+                k = slice(n - 1 - start, n - 1 - stop, -step)
+                flips.append(dim)
             dim += 1
         out.append(k)
-    return tuple(out) if isinstance(key, tuple) else out[0]
+    return (tuple(out) if isinstance(key, tuple) else out[0]), flips
 
 
 # ------------------------------------------------------------ invoke path

@@ -70,14 +70,15 @@ def bind(lib):
     f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
         [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
-    f = lib.mxt_bn_stats
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
-        [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    f = lib.mxt_bn_stats_cl
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
+    bn = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+          ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+          ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+          ctypes.c_int, ctypes.c_void_p]
+    lib.mxt_bn_stats.argtypes = bn
+    lib.mxt_bn_stats.restype = ctypes.c_int
+    lib.mxt_bn_stats_plan.argtypes = bn + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    lib.mxt_bn_stats_plan.restype = ctypes.c_int
     lib.mxt_error_string.argtypes = [ctypes.c_int]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib

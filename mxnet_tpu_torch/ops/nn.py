@@ -203,12 +203,13 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     and returns the output only.  Training normalises with the batch
     statistics, as ``mxnet_tpu/ops/nn.py:284-305`` does, and returns
     ``(out, mean, var)`` (``var`` biased).  The statistics come from the
-    bn-stats kernel (``ops/bn_stats.py``) with the pivot, the first element
-    of each channel (``x[0, c, 0, 0]``, ``x[0, 0, 0, c]`` in NHWC), as its
-    shift; ``out``'s gradient flows through them (the pivot is a
-    constant).  The statistics read the activation as it lies when the
-    channel axis is 1 of a contiguous tensor or the innermost one (NHWC,
-    ``channels_last``): the kernel's two entries.  Any other input is
+    bn-stats kernel (``ops/bn_stats.py``), one launch, with the pivot, the
+    first element of each channel (``x[0, c, 0, 0]``, ``x[0, 0, 0, c]`` in
+    NHWC), as its shift, read by the kernel itself (``bn_stats.FIRST``);
+    ``out``'s gradient flows through them (the pivot is a constant).  The
+    statistics read the activation as it lies when the channel axis is 1
+    of a contiguous tensor or the innermost one (NHWC, ``channels_last``):
+    the kernel's two layouts.  Any other input is
     copied to contiguous channel-first once, on every device, counted in
     ``bn_stats.copies``.
     The moving statistics are not touched: see
@@ -224,9 +225,8 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if _bs.layout(data, ax) is None:
         x, xax = _to_channel_first(data, ax).contiguous(), 1
         _bs.bn_stats.copies += 1
-    pivot = x[tuple(slice(None) if i == xax else 0
-                    for i in range(x.dim()))].detach().float().contiguous()
-    mean32, var32 = _bs.batch_stats(x, pivot, xax)
+    # the kernel reads its pivot, each channel's first element, itself
+    mean32, var32 = _bs.batch_stats(x, _bs.FIRST, xax)
     mean, var = mean32.to(data.dtype), var32.to(data.dtype)
     shape = [1] * data.dim()
     shape[ax] = data.shape[ax]

@@ -156,18 +156,43 @@ def test_moving_stats_update_matches_register_writeback():
     np.testing.assert_allclose(tv.numpy(), jv.asnumpy(), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype,hw,offset,vec", [
-    (torch.float32, 12544, 0, 4), (torch.float32, 49, 0, 1),
-    (torch.float32, 196, 0, 4), (torch.float32, 98, 0, 2),
-    (torch.float32, 196, 1, 1), (torch.float32, 196, 2, 2),
-    (torch.bfloat16, 784, 0, 8), (torch.bfloat16, 196, 0, 4),
-    (torch.bfloat16, 49, 0, 1), (torch.bfloat16, 784, 4, 4)])
-def test_vector_width_follows_hw_and_alignment(dtype, hw, offset, vec):
-    """The kernel loads 16 bytes a thread where H*W and the base address
-    allow, else the widest smaller width: 7x7 loads one element."""
-    base = torch.empty(2 * hw + 16, dtype=dtype)
-    x = base[offset:offset + 2 * hw].view(1, 2, hw)
-    assert bs._vector_width(x, hw) == vec
+def _check_case(case):
+    x = torch.zeros(2, 3, 4, 5)
+    return {
+        "nchw": (x, None, 1),
+        "nhwc": (x, bs.FIRST, 3),
+        "channels_last": (x.to(memory_format=torch.channels_last),
+                          torch.zeros(3), 1),
+        "fp16": (x.half(), bs.FIRST, 1),
+        "bf16": (x.bfloat16(), None, 3),
+        "int": (x.int(), None, 1),
+        "float64": (x.double(), None, 1),
+        "1d": (torch.zeros(6), None, 0),
+        "empty": (torch.zeros(0, 3, 4), None, 1),
+        "strided": (x[:, :, :, ::2], None, 1),
+        "pivot_shape": (x, torch.zeros(4), 1),
+        "pivot_dtype": (x, torch.zeros(3, dtype=torch.float64), 1),
+        "pivot_strided": (x, torch.zeros(6)[::2], 1),
+        "pivot_name": (x, "last", 1),
+    }[case]
+
+
+@pytest.mark.parametrize("case,want", [
+    ("nchw", "cf"), ("nhwc", "cl"), ("channels_last", "cl"), ("fp16", "cf"),
+    ("bf16", "cl"), ("int", TypeError), ("float64", TypeError),
+    ("1d", ValueError), ("empty", ValueError), ("strided", ValueError),
+    ("pivot_shape", ValueError), ("pivot_dtype", ValueError),
+    ("pivot_strided", ValueError), ("pivot_name", ValueError)])
+def test_check_takes_only_what_the_kernel_reads(case, want):
+    """The check before a launch: the kernel's layout for the dtypes,
+    layouts and pivots it reads, and an error for anything else (the
+    wrapper copies and casts nothing)."""
+    x, pivot, axis = _check_case(case)
+    if isinstance(want, str):
+        assert bs._check(x, pivot, axis) == want
+    else:
+        with pytest.raises(want):
+            bs._check(x, pivot, axis)
 
 
 def test_bn_stats_takes_only_cpu_or_cuda():
@@ -323,3 +348,57 @@ def test_gluon_batchnorm_axis3_folds_moving_stats_like_jax():
     np.testing.assert_allclose(bn.running_var.numpy(),
                                jbn.running_var.data().asnumpy(), rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------------------------ own pivot, layout
+@pytest.mark.parametrize("shape,axis", [((4, 3, 5, 6), 1), ((2, 7, 7, 64), 3),
+                                        ((3, 4, 130), 2), ((5, 9), 1)])
+def test_own_pivot_is_the_explicit_pivot_on_the_cpu(shape, axis):
+    """``pivot=FIRST`` on the plain route shifts by each channel's first
+    element: the bits of the explicit pivot tensor, and JAX's batch
+    statistics (the tolerances of ``test_plain_stats_match_jax``)."""
+    x, gamma, beta = _data(shape, seed=11, axis=axis)
+    xt = torch.from_numpy(x)
+    first = xt[tuple(slice(None) if i == axis else 0
+                     for i in range(x.ndim))].contiguous()
+    m, v = bs.bn_stats(xt, bs.FIRST, axis)
+    m1, v1 = bs.bn_stats(xt, first, axis)
+    assert torch.equal(m, m1) and torch.equal(v, v1)
+    (_, bmean, bvar), _ = _jax_train(x, gamma, beta, axis, False)
+    np.testing.assert_allclose(m.numpy(), np.asarray(bmean), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(v.numpy(), np.asarray(bvar), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _layout_by_view(x, axis):
+    """The layout rule as a view states it: the kernel's NCHW entry for a
+    contiguous tensor with the channel on axis 1, its channels-last one
+    where the channel axis moved last is contiguous."""
+    axis %= x.dim()
+    if axis == 1 and x.is_contiguous():
+        return "cf"
+    return "cl" if x.movedim(axis, -1).is_contiguous() else None
+
+
+@pytest.mark.parametrize("case", [
+    "nchw", "nhwc3", "channels_last", "strided", "permuted", "ones",
+    "unit_channel", "2d", "5d_last", "5d_cl", "sliced_rows"])
+def test_layout_from_strides_matches_the_view_rule(case):
+    """``layout`` reads sizes and strides without building a view, and
+    agrees with the rule a ``movedim`` view states."""
+    base = torch.zeros(2, 3, 4, 5)
+    x, axis = {
+        "nchw": (base, 1),
+        "nhwc3": (base, 3),
+        "channels_last": (base.to(memory_format=torch.channels_last), 1),
+        "strided": (base[:, :, :, ::2], 1),
+        "permuted": (base.permute(0, 2, 3, 1), 1),
+        "ones": (torch.zeros(1, 3, 1, 1), 1),
+        "unit_channel": (torch.zeros(2, 1, 4, 4).permute(0, 2, 3, 1), 3),
+        "2d": (torch.zeros(6, 7), 1),
+        "5d_last": (torch.zeros(2, 3, 2, 2, 5), 4),
+        "5d_cl": (torch.zeros(2, 2, 2, 2, 5).movedim(4, 1), 1),
+        "sliced_rows": (torch.zeros(8, 4, 6)[::2], 2),
+    }[case]
+    assert bs.layout(x, axis) == _layout_by_view(x, axis)

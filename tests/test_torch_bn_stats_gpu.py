@@ -215,9 +215,9 @@ def test_channels_last_entry_misaligned_base(cuda, dtype, offset):
     shape = (4, 6, 6, 64)
     flat = _x((math.prod(shape) + 8,), cuda, getattr(torch, dtype))
     x = flat[offset:offset + math.prod(shape)].view(shape)
-    assert bs._vector_width(x, 64) < 16 // x.element_size()
     pivot = x[0, 0, 0].float().contiguous()
-    mean, var = bs.bn_stats(x, pivot, 3)
+    mean, var, plan = bs.plan(x, pivot, 3)
+    assert plan["vec"] < 16 // x.element_size()
     rmean, rvar = bs._reference(x, pivot, 3)
     torch.testing.assert_close(mean, rmean, rtol=0, atol=2e-5)
     torch.testing.assert_close(var, rvar, rtol=0, atol=2e-5)
@@ -272,3 +272,171 @@ def test_training_batch_norm_copies_nothing_channels_last(cuda, layout):
     for a, b in zip(got, run("cpu")):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * max(1.0, b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hw,offset,vec", [
+    (torch.float32, 12544, 0, 4), (torch.float32, 49, 0, 2),
+    (torch.float32, 196, 0, 4), (torch.float32, 98, 0, 2),
+    (torch.float32, 196, 1, 1), (torch.float32, 196, 2, 2),
+    (torch.bfloat16, 784, 0, 8), (torch.bfloat16, 196, 0, 4),
+    (torch.bfloat16, 49, 0, 2), (torch.bfloat16, 784, 4, 4)])
+def test_vector_width_follows_hw_and_alignment(cuda, dtype, hw, offset,
+                                               vec):
+    """The kernel loads 16 bytes a thread where the run it walks and the
+    base address allow, else the widest smaller width: a long H*W run
+    (``wide``) by H*W, a short one (``rows``, 7x7 here) by C*H*W."""
+    base = torch.zeros(2 * hw + 16, dtype=dtype, device=cuda)
+    x = base[offset:offset + 2 * hw].view(1, 2, hw)
+    assert bs.plan(x)[2]["vec"] == vec
+
+
+# ------------------------------------------------ one launch, own pivot
+GEOMETRIES = [(s, 1) for s in RESNET50_BN] + \
+    [(s, 3) for s in RESNET50_BN_NHWC]
+
+
+def _first(x, axis):
+    return x[tuple(slice(None) if i == axis else 0
+                   for i in range(x.dim()))].float().contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", GEOMETRIES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_own_pivot_is_the_explicit_pivot_bitwise(cuda, shape, axis, dtype):
+    """``pivot=FIRST`` (the kernel reads x[0, c, 0, 0] itself, as the
+    training path calls it) gives the bits of the explicit pivot tensor,
+    and the plain version's statistics within 2e-5."""
+    x = _x(shape, cuda, getattr(torch, dtype))
+    mean, var = bs.bn_stats(x, bs.FIRST, axis)
+    emean, evar = bs.bn_stats(x, _first(x, axis), axis)
+    assert torch.equal(mean, emean) and torch.equal(var, evar)
+    rmean, rvar = bs._reference(x, bs.FIRST, axis)
+    torch.testing.assert_close(mean, rmean, rtol=0, atol=2e-5)
+    torch.testing.assert_close(var, rvar, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_large_mean_with_the_own_pivot(cuda, axis, dtype):
+    """Mean 1000, std 1, both layouts: the variance within 1e-4 of a
+    float64 computation and the mean within 1e-6 relative."""
+    shape = (8, 16, 28, 28) if axis == 1 else (8, 28, 28, 16)
+    x = _x(shape, cuda, getattr(torch, dtype), mean=1000.0, std=1.0)
+    mean, var = bs.bn_stats(x, bs.FIRST, axis)
+    dims = tuple(i for i in range(4) if i != axis)
+    x64 = x.double()
+    torch.testing.assert_close(var.double(),
+                               x64.var(dims, unbiased=False),
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(mean.double(), x64.mean(dims),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", GEOMETRIES)
+def test_two_runs_same_bits_every_geometry(cuda, shape, axis):
+    """Whichever fold the plan takes (none, a cluster, the tickets), two
+    calls give the same bits."""
+    x = _x(shape, cuda)
+    a = bs.bn_stats(x, bs.FIRST, axis)
+    b = bs.bn_stats(x, bs.FIRST, axis)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", [((32, 64, 56, 56), 1),
+                                        ((32, 256, 14, 14), 1),
+                                        ((32, 28, 28, 128), 3),
+                                        ((4, 6, 6, 17), 3)])
+@pytest.mark.parametrize("splits", [1, 2, 8, 9, 33, 264])
+@pytest.mark.parametrize("tickets", [False, True])
+def test_forced_splits_fold_alike(cuda, shape, axis, splits, tickets):
+    """Every fold route, forced (S = 1; 2-8 slices in a cluster, or through
+    the tickets when asked; more through the tickets, in one or two
+    levels): the plain version's statistics within 2e-5, the same bits
+    twice, and the tickets left at zero for the next call."""
+    x = _x(shape, cuda)
+    m1, v1, plan = bs.plan(x, bs.FIRST, axis, splits=splits,
+                           tickets=tickets)
+    assert plan["splits"] == splits
+    assert plan["cluster"] == (1 < splits <= 8 and not tickets)
+    m2, v2, _ = bs.plan(x, bs.FIRST, axis, splits=splits, tickets=tickets)
+    assert torch.equal(m1, m2) and torch.equal(v1, v2)
+    rmean, rvar = bs._reference(x, bs.FIRST, axis)
+    torch.testing.assert_close(m1, rmean, rtol=0, atol=2e-5)
+    torch.testing.assert_close(v1, rvar, rtol=0, atol=2e-5)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream().cuda_stream
+    tickets = bs._scratch[(x.device.index, stream)][1]
+    assert int(tickets.count_nonzero()) == 0
+
+
+@pytest.mark.gpu
+def test_two_streams_concurrently_give_the_serial_bits(cuda):
+    """Calls on two streams at once (each with its own tickets and
+    partials) give the bits of the same calls made one after another."""
+    shapes = [((32, 64, 56, 56), 1), ((32, 28, 28, 128), 3),
+              ((32, 256, 14, 14), 1), ((32, 14, 14, 256), 3)]
+    xs = [(_x(s, cuda, seed=i), a) for i, (s, a) in enumerate(shapes)]
+    serial = [bs.bn_stats(x, bs.FIRST, a) for x, a in xs] * 4
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [None] * len(serial)
+    for rep in range(4):
+        for i, (x, a) in enumerate(xs):
+            with torch.cuda.stream(streams[i % 2]):
+                got[rep * len(xs) + i] = bs.bn_stats(x, bs.FIRST, a)
+    torch.cuda.synchronize()
+    for (m, v), (sm, sv) in zip(got, serial):
+        assert torch.equal(m, sm) and torch.equal(v, sv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", [((32, 64, 112, 112), 1),
+                                        ((32, 512, 7, 7), 1),
+                                        ((32, 56, 56, 64), 3),
+                                        ((32, 7, 7, 2048), 3)])
+def test_one_kernel_and_nothing_else_a_call(cuda, shape, axis):
+    """torch.profiler over 5 warm calls of the training path's statistics
+    (``batch_stats`` with the own pivot): 5 ``bn_stats`` kernels, and no
+    other kernel, memset or copy."""
+    from torch.autograd import DeviceType
+    x = _x(shape, cuda)
+    bs.batch_stats(x, bs.FIRST, axis)            # scratch made
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            bs.batch_stats(x, bs.FIRST, axis)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in device if "bn_stats" in e.key) == 5
+    assert [e.key for e in device if "bn_stats" not in e.key] == []
+
+
+@pytest.mark.gpu
+def test_training_batch_norm_launches_only_the_kernel_for_stats(cuda):
+    """Training ``batch_norm``'s statistics cost one launch: the forward's
+    kernels are the bn_stats kernel and the normalisation's elementwise
+    kernels, with no copy kernel (the pivot is read in the kernel)."""
+    from torch.autograd import DeviceType
+    x = _x((8, 64, 28, 28), cuda)
+    g = torch.ones(64, device=cuda)
+    b = torch.zeros(64, device=cuda)
+    ops.batch_norm(x, g, b, None, None, 1e-5, False, 1, training=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ops.batch_norm(x, g, b, None, None, 1e-5, False, 1, training=True)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in device if "bn_stats" in e.key) == 1
+    assert not [e.key for e in device
+                if "copy" in e.key.lower() or "memset" in e.key.lower()]

@@ -663,7 +663,7 @@ def test_dense_activation_matches_jax(act):
     jd.initialize()
     w, b = jd.weight.data().asnumpy(), rng.randn(3).astype("float32")
     jd.bias.set_data(jmx.nd.array(b))
-    td = gluon.nn.Dense(3, 5, activation=act, device="cpu")
+    td = gluon.nn.Dense(3, activation=act, in_units=5, device="cpu")
     with torch.no_grad():
         td.weight.copy_(_t(w))
         td.bias.copy_(_t(b))
@@ -671,7 +671,7 @@ def test_dense_activation_matches_jax(act):
     np.testing.assert_allclose(out.numpy(), jd(jmx.nd.array(x)).asnumpy(),
                                rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="unknown activation"):
-        gluon.nn.Dense(3, 5, activation="nosuch", device="cpu")
+        gluon.nn.Dense(3, activation="nosuch", in_units=5, device="cpu")
 
 
 def test_dropped_block_is_freed_without_the_collector():
