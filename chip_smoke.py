@@ -63,7 +63,9 @@ Phases, in order; any failure exits non-zero:
    plain path.  The per-step losses, every step-1 gradient and every
    parameter and running statistic after step 2 must agree within 1e-4 of
    each tensor's max, or twice the CPU run's own spread when the batch is
-   reordered (the same training in exact arithmetic) if that is larger.
+   reordered (the same training in exact arithmetic; the largest of three
+   reorderings) if that is larger.  Every parity phase of an fp32
+   training run (8, 14, 21, 24) keeps this one rule.
    Every training forward must launch the kernel exactly 53 times (one
    per BatchNorm) and the plain statistics must never see a CUDA tensor;
 9. training: the same model at full width, batch 32 of (3, 224, 224): 3
@@ -222,6 +224,28 @@ and phase 11's shape the times of the backward, of forward plus backward
 and of SDPA's forward plus backward (a yardstick the port never calls),
 beside the backward's bound.  Phase 3 holds and times the forward at phase
 11's shape too.
+
+24. Gluon's authoring surface: ResNet-50 v1 at full width built in
+   ``name_scope`` with the reference's prefixed names
+   (``resnetv10_conv0_weight``...), GluonCV's ``--no-wd`` rule
+   (``collect_params('.*beta|.*gamma|.*bias').setattr('wd_mult', 0.0)``,
+   107 parameters at wd 0), phase 8's optimizer otherwise: (a) 3 steps at
+   batch 8, card against the CPU under phase 8's rule; (b) batch 32,
+   3 warm and 10 timed steps beside phase 9's step of the same call, 53
+   launches a forward;
+   (c) ``hybridize``, one forward, ``export`` into ``build/chip_smoke/``,
+   ``SymbolBlock.imports(ctx=mx.gpu(0))``: logits within 1e-5 of the live
+   net's max; (d) the imported block plus a ``Dense(10)`` head in a
+   ``HybridSequential``: 3 steps at batch 32 on (c)'s export (finite
+   losses, 53 launches a forward, no plain statistics on the card), and 2
+   steps at batch 8 against the CPU under phase 8's rule on the export of
+   phase 6's weights untrained, the same problem in every call ((b)'s
+   weights differ between calls, since cuDNN's backward sums in no fixed
+   order);
+25. the repo's Gluon examples on the card: ``example/gluon/mnist.py``
+   (synthetic data, lenet, one epoch) and ``example/amp/finetune_amp.py``
+   (one epoch), each read with ``mxnet_tpu`` as ``mxnet_tpu_torch`` (the
+   files are not edited); each must finish with its loss falling.
 
 Phases 4, 6, 9, 11, 17, 18 and 22 print a ``[profile]`` breakdown of one
 micro-batch or step.  The last two lines are the kernels' JSON record and
@@ -1236,8 +1260,10 @@ def _train(net, x, y, steps, amp_on=False, opt=None):
     ``opt`` replaces phase 8's optimizer settings."""
     from mxnet_tpu_torch import autograd, gluon
     from mxnet_tpu_torch.contrib import amp
-    params = net.collect_params()
-    trainer = gluon.Trainer(params, "sgd", dict(opt or TRAIN_OPT))
+    from mxnet_tpu_torch.test_utils import structural_params
+    params = structural_params(net)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            dict(opt or TRAIN_OPT))
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     losses, grads = [], None
     if amp_on:
@@ -1256,12 +1282,12 @@ def _train(net, x, y, steps, amp_on=False, opt=None):
             if step == 0:
                 scale = trainer._amp_loss_scaler.loss_scale if amp_on \
                     else 1.0
-                grads = {k: p.grad().float().cpu().numpy() / scale
+                grads = {k: p.grad_tensor().float().cpu().numpy() / scale
                          for k, p in params.items() if p.grad_req != "null"}
             trainer.step(x.shape[0])
     finally:
         amp.deinit()
-    return losses, grads, {k: p.data().detach().float().cpu().numpy()
+    return losses, grads, {k: p.tensor().detach().float().cpu().numpy()
                            for k, p in params.items()}
 
 
@@ -1270,6 +1296,38 @@ def _rel(a, b):
     check(sorted(a) == sorted(b) and a, "compared runs differ in tensors")
     return max((float(np.abs(a[k] - b[k]).max()) /
                 max(float(np.abs(b[k]).max()), 1e-30), k) for k in b)
+
+
+def _reorderings(n):
+    """Three reorderings of a batch of ``n``."""
+    return [np.roll(np.arange(n), 3), np.roll(np.arange(n), 5),
+            np.arange(n)[::-1].copy()]
+
+
+def _parity(tag, ref, others, card, steps):
+    """Phase 8's rule: per quantity (the loss of each step, the step-1
+    gradients, the parameters and running statistics after the last
+    step), card vs CPU within 1e-4 of each tensor's max or twice the
+    largest distance of the CPU run from itself under the reorderings of
+    the batch in ``others`` (:func:`_reorderings`; each is one draw of
+    that noise).  A Gluon run keys its tensors by structural name, which
+    does not depend on how many nets the process built (prefixed names
+    do)."""
+    quantities = [(f"loss of step {i + 1}", lambda r, i=i: {"l": r[0][i]})
+                  for i in range(steps)]
+    quantities += [("step-1 gradients", lambda r: r[1]),
+                   (f"parameters and running statistics after step "
+                    f"{steps}", lambda r: r[2])]
+    for what, pick in quantities:
+        spread, spread_at = max(_rel(pick(o), pick(ref)) for o in others)
+        tol = max(1e-4, 2 * spread)
+        err, err_at = _rel(pick(card), pick(ref))
+        log(f"{tag} {what}: card vs CPU {err:.3e} of the tensor's max "
+            f"(worst {err_at}), CPU vs CPU reordered {spread:.3e} (worst "
+            f"{spread_at}; largest of {len(others)}), tol {tol:.3e}")
+        check(all(np.isfinite(v).all() for v in pick(card).values()),
+              f"{tag} non-finite {what}")
+        check(err <= tol, f"{tag} card disagrees with the CPU: {what}")
 
 
 def _images(rng, batch, layout):
@@ -1289,7 +1347,6 @@ def phase_train_parity(bs, path, layout="NCHW", steps=PARITY_STEPS):
     rng = np.random.RandomState(2)
     x = _images(rng, PARITY_BATCH, layout)
     y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
-    perm = np.roll(np.arange(PARITY_BATCH), 3)
 
     def cpu_run(order):
         net = get_model("resnet50_v1", classes=1000, layout=layout,
@@ -1301,7 +1358,7 @@ def phase_train_parity(bs, path, layout="NCHW", steps=PARITY_STEPS):
 
     t0 = time.perf_counter()
     ref = cpu_run(np.arange(PARITY_BATCH))
-    again = cpu_run(perm)
+    others = [cpu_run(p) for p in _reorderings(PARITY_BATCH)]
     cpu_s = time.perf_counter() - t0
 
     net = get_model("resnet50_v1", classes=1000, layout=layout)  # the GPU
@@ -1321,27 +1378,13 @@ def phase_train_parity(bs, path, layout="NCHW", steps=PARITY_STEPS):
     check(launches_cl == want_cl and copies == 0,
           f"{tag} {launches_cl} channels-last launches (want {want_cl}), "
           f"{copies} copied BatchNorm inputs (want 0)")
-    log(f"{tag} parity: 2 CPU plain runs of {steps} steps at batch "
+    log(f"{tag} parity: {1 + len(others)} CPU plain runs of {steps} "
+        f"steps at batch "
         f"{PARITY_BATCH} ({layout}) in {cpu_s:.1f} s; card: {launches} "
         f"bn-stats launches ({BN_PER_FORWARD} per forward, {launches_cl} "
         f"on the channels-last entry, {copies} copies), none of the plain "
         f"version")
-    quantities = [(f"loss of step {i + 1}", lambda r, i=i: {"l": r[0][i]})
-                  for i in range(steps)]
-    quantities += [("step-1 gradients", lambda r: r[1]),
-                   (f"parameters and running statistics after step "
-                    f"{steps}", lambda r: r[2])]
-    for what, pick in quantities:
-        spread, spread_at = _rel(pick(again), pick(ref))
-        tol = max(1e-4, 2 * spread)
-        err, err_at = _rel(pick(card), pick(ref))
-        log(f"{tag} {what}: card vs CPU {err:.3e} of the tensor's max "
-            f"(worst {err_at}), CPU vs CPU reordered {spread:.3e} (worst "
-            f"{spread_at}), tol {tol:.3e}")
-        check(all(np.isfinite(v).all() for v in pick(card).values()),
-              f"non-finite {what}")
-        check(err <= tol, f"card training disagrees with the CPU plain run: "
-                          f"{what}")
+    _parity(tag, ref, others, card, steps)
     log(f"{tag} losses, card: {[float(l.mean()) for l in card[0]]}, "
         f"CPU: {[float(l.mean()) for l in ref[0]]}")
 
@@ -1710,13 +1753,15 @@ def _pretrain(net, batch, steps):
     """``steps`` Adam steps; returns (losses, the gradients of every step,
     the final parameters), all on the host."""
     from mxnet_tpu_torch import gluon
-    params = net.collect_params()
-    trainer = gluon.Trainer(params, "adam", {"learning_rate": PRETRAIN_LR})
+    from mxnet_tpu_torch.test_utils import structural_params
+    params = structural_params(net)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": PRETRAIN_LR})
     grads = []
     step = _pretrain_step_fn(net, batch, trainer, lambda: grads.append(
-        {k: p.grad().cpu().numpy().copy() for k, p in params.items()}))
+        {k: p.grad_tensor().cpu().numpy().copy() for k, p in params.items()}))
     losses = [float(step().cpu()) for _ in range(steps)]
-    return losses, grads, {k: p.data().detach().cpu().numpy()
+    return losses, grads, {k: p.tensor().detach().cpu().numpy()
                            for k, p in params.items()}
 
 
@@ -2199,6 +2244,7 @@ def _nd_pretrain_run(fa, steps, keep, timed=0):
     more and returns (step ms, peak bytes, losses)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.test_utils import structural_params
     ctx = mx.gpu(0)
     net = _bert(PT_LAYERS, None)
     net.initialize(ctx=ctx, generator=torch.Generator(
@@ -2209,9 +2255,10 @@ def _nd_pretrain_run(fa, steps, keep, timed=0):
     tok, seg, pos = (mx.nd.array(a, dtype="int32", ctx=ctx)
                      for a in (tok, seg, pos))
     mlm_y, nsp_y = mx.nd.array(mlm_y, ctx=ctx), mx.nd.array(nsp_y, ctx=ctx)
-    params = net.collect_params()
+    params = structural_params(net)
     sce = gluon.loss.SoftmaxCrossEntropyLoss()
-    trainer = gluon.Trainer(params, "adam", {"learning_rate": PRETRAIN_LR})
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": PRETRAIN_LR})
     grads = []
 
     def step(on_grads=None):
@@ -2226,7 +2273,7 @@ def _nd_pretrain_run(fa, steps, keep, timed=0):
         return loss
 
     def grab():
-        grads.append({k: p.grad().clone() for k, p in params.items()
+        grads.append({k: p.grad_tensor().clone() for k, p in params.items()
                       if p.grad_req != "null"})
 
     if not keep:
@@ -2238,7 +2285,7 @@ def _nd_pretrain_run(fa, steps, keep, timed=0):
     losses[-1].wait_to_read()
     losses = [float(l.asscalar()) for l in losses]
     if keep:
-        return losses, grads, {k: p.data().detach().clone()
+        return losses, grads, {k: p.tensor().detach().clone()
                                for k, p in params.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2254,6 +2301,7 @@ def _nd_pretrain_parity(fa, steps=3):
     """Phase 13's first part: ``steps`` steps through NDArrays held to two
     runs of phase 11's tensor path from the same weights."""
     from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.test_utils import structural_params
 
     def tensor_run():
         net = _bert(PT_LAYERS, None)
@@ -2263,17 +2311,17 @@ def _nd_pretrain_parity(fa, steps=3):
         arrays = synth_batch(rng, PT_BATCH, SEQ, VOCAB, MASKED)
         tok, seg, _, pos, mlm_y, nsp_y = (torch.from_numpy(a).cuda()
                                           for a in arrays)
-        params = net.collect_params()
-        trainer = gluon.Trainer(params, "adam",
+        params = structural_params(net)
+        trainer = gluon.Trainer(net.collect_params(), "adam",
                                 {"learning_rate": PRETRAIN_LR})
         grads = []
         step = _pretrain_step_fn(
             net, (tok, seg, None, pos, mlm_y, nsp_y), trainer,
-            lambda: grads.append({k: p.grad().clone()
+            lambda: grads.append({k: p.grad_tensor().clone()
                                   for k, p in params.items()
                                   if p.grad_req != "null"}))
         losses = [float(step()) for _ in range(steps)]
-        return losses, grads, {k: p.data().detach().clone()
+        return losses, grads, {k: p.tensor().detach().clone()
                                for k, p in params.items()}
 
     # the token-type embedding's gradient (2 rows, 4096 ids) is summed in
@@ -2429,7 +2477,6 @@ def phase_module_parity(bs):
             for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
     x = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
     y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
-    perm = np.roll(np.arange(PARITY_BATCH), 3)
 
     def cpu_run(order):
         mod = _module(mx.cpu(), sym, PARITY_BATCH, (args, auxs))
@@ -2438,7 +2485,7 @@ def phase_module_parity(bs):
 
     t0 = time.perf_counter()
     ref = cpu_run(np.arange(PARITY_BATCH))
-    again = cpu_run(perm)
+    others = [cpu_run(p) for p in _reorderings(PARITY_BATCH)]
     cpu_s = time.perf_counter() - t0
     card_ctx = mx.gpu(0)
     with no_plain_stats_on_cuda(bs):
@@ -2451,26 +2498,12 @@ def phase_module_parity(bs):
           f"[module] {launches} bn-stats launches for {PARITY_STEPS} "
           f"training forwards (want {BN_PER_FORWARD} each)")
     log(f"[module] parity: symbolic resnet50_v1 ({len(sym._topo())} nodes, "
-        f"{len(args)} parameters, {len(auxs)} auxiliary states), 2 CPU "
-        f"plain runs of {PARITY_STEPS} Module steps at batch {PARITY_BATCH} "
-        f"in {cpu_s:.1f} s; card: {launches} bn-stats launches "
-        f"({BN_PER_FORWARD} per forward), none of the plain version")
-    quantities = [(f"loss of step {i + 1}", lambda r, i=i: {"l": r[0][i]})
-                  for i in range(PARITY_STEPS)]
-    quantities += [("step-1 gradients", lambda r: r[1]),
-                   (f"parameters and auxiliary states after step "
-                    f"{PARITY_STEPS}", lambda r: r[2])]
-    for what, pick in quantities:
-        spread, spread_at = _rel(pick(again), pick(ref))
-        tol = max(1e-4, 2 * spread)
-        err, err_at = _rel(pick(card), pick(ref))
-        log(f"[module] {what}: card vs CPU {err:.3e} of the tensor's max "
-            f"(worst {err_at}), CPU vs CPU reordered {spread:.3e} (worst "
-            f"{spread_at}), tol {tol:.3e}")
-        check(all(np.isfinite(v).all() for v in pick(card).values()),
-              f"[module] non-finite {what}")
-        check(err <= tol, f"[module] card training disagrees with the CPU "
-                          f"plain run: {what}")
+        f"{len(args)} parameters, {len(auxs)} auxiliary states), "
+        f"{1 + len(others)} CPU plain runs of {PARITY_STEPS} Module "
+        f"steps at batch {PARITY_BATCH} in {cpu_s:.1f} s; card: "
+        f"{launches} bn-stats launches ({BN_PER_FORWARD} per forward), "
+        f"none of the plain version")
+    _parity("[module]", ref, others, card, PARITY_STEPS)
     log(f"[module] losses, card: {[float(l.mean()) for l in card[0]]}, "
         f"CPU: {[float(l.mean()) for l in ref[0]]}")
 
@@ -2687,6 +2720,7 @@ def phase_amp_pretrain_parity(fa):
     step."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.test_utils import structural_params
     rng = np.random.RandomState(5)
     batch = list(synth_batch(rng, PT_PARITY_BATCH, SEQ, VOCAB, MASKED))
     cpu_net = _bert(PT_PARITY_LAYERS, "cpu")
@@ -2700,14 +2734,14 @@ def phase_amp_pretrain_parity(fa):
         net.load_state_dict({k: v.to(device) for k, v in state.items()})
         tensors = [None if a is None else torch.from_numpy(a[order])
                    .to(device) for a in batch[:2] + [None] + batch[3:]]
-        params = net.collect_params()
-        trainer = gluon.Trainer(params, "adam",
+        params = structural_params(net)
+        trainer = gluon.Trainer(net.collect_params(), "adam",
                                 {"learning_rate": PRETRAIN_LR})
         grads = []
 
         def on_grads():
             scale = trainer._amp_loss_scaler.loss_scale if amp_on else 1.0
-            grads.append({k: p.grad().float().cpu().numpy() / scale
+            grads.append({k: p.grad_tensor().float().cpu().numpy() / scale
                           for k, p in params.items()})
         trace, hooks = layer_dtypes(net)
         if amp_on:
@@ -2722,7 +2756,7 @@ def phase_amp_pretrain_parity(fa):
             for h in hooks:
                 h.remove()
         return ({"l": np.array(losses)}, grads,
-                {k: p.data().detach().float().cpu().numpy()
+                {k: p.tensor().detach().float().cpu().numpy()
                  for k, p in params.items()}, trace)
 
     t0 = time.perf_counter()
@@ -3230,6 +3264,303 @@ def phase_training_loop(card, device="cuda"):
         f"; on {card}")
 
 
+NO_WD = ".*beta|.*gamma|.*bias"        # train_imagenet.py --no-wd
+EXPORT_TOL = 1e-5                      # of max |logit|: the same ops, fp32
+FT_CLASSES = 10
+NO_WD_PARAMS = 107                     # ResNet-50 v1: 53 BN x 2, fc bias
+
+
+def _gluon_resnet(path, device):
+    """ResNet-50 v1 as a Gluon user builds it: inside ``name_scope`` with
+    the reference's prefixed names (a fresh ``mx.name`` manager, so that
+    they read ``resnetv10_...``), phase 6's weights from the ``.params``
+    file by structural name, and GluonCV's no-wd rule on beta, gamma and
+    the biases."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    with mx.name.NameManager():
+        net = get_model("resnet50_v1", classes=1000, device=device)
+    net.load_parameters(str(path))
+    names = list(net.collect_params())
+    check(len(names) == 267 and names[0] == "resnetv10_conv0_weight"
+          and "resnetv10_stage4_batchnorm9_running_var" in names
+          and names[-1] == "resnetv10_dense0_bias",
+          f"[gluon_authoring] prefixed names {names[:2]}..{names[-2:]}")
+    net.collect_params(NO_WD).setattr("wd_mult", 0.0)
+    return net
+
+
+def _finetune_net(files, ctx, head):
+    """The exported pair loaded back with ``SymbolBlock.imports`` on
+    ``ctx`` and a new ``Dense(10)`` head (weights ``head``) in a
+    ``HybridSequential``, placed on ``ctx`` by ``initialize``."""
+    from mxnet_tpu_torch import gluon
+    imported = gluon.SymbolBlock.imports(files[0], ["data"], files[1],
+                                         ctx=ctx)
+    net = gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(imported, gluon.nn.Dense(FT_CLASSES, in_units=1000))
+    net[1].initialize(ctx=ctx)
+    with torch.no_grad():
+        net[1].weight.copy_(torch.from_numpy(head[0]))
+        net[1].bias.copy_(torch.from_numpy(head[1]))
+    return net
+
+
+def _timed_steps(net, x, y, warm, timed):
+    """``warm`` then ``timed`` SGD steps of the user's loop; returns
+    (mean losses, ms per timed step)."""
+    from mxnet_tpu_torch import autograd, gluon
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss)
+        trainer.step(x.shape[0])
+        return loss.detach()
+
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    return [float(l.mean()) for l in losses], \
+        (time.perf_counter() - t0) * 1e3 / max(timed, 1)
+
+
+def phase_gluon_authoring(bs, path, card, train_ms):
+    """Phase 24: Gluon's authoring surface on ResNet-50 v1 at full width
+    (1000 classes, (3, 224, 224), fp32, TF32 off), built in
+    ``name_scope`` with the reference's names and GluonCV's no-wd rule.
+    (a) 3 SGD steps at batch 8, card against the CPU under phase 8's
+    rule;
+    (b) batch 32, 3 warm and 10 timed steps beside phase 9's step;
+    (c) ``hybridize``, one forward, ``export`` into ``build/chip_smoke/``,
+    ``SymbolBlock.imports(ctx=mx.gpu(0))``: its logits equal the live
+    net's within 1e-5 of their max; (d) the imported block plus a
+    ``Dense(10)`` head fine-tuned 3 steps at batch 32 (finite losses, 53
+    launches a forward), and, on an export of phase 6's weights untrained
+    (the same problem in every call, where (b)'s weights are not), 2 steps
+    at batch 8 against the CPU under phase 8's rule.  Returns the
+    bn-stats launches of (b) and of (d)'s batch-32 run, each driven with
+    the counts at 0."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    tag = "[gluon_authoring]"
+    rng = np.random.RandomState(24)
+    x8 = rng.randn(PARITY_BATCH, *IMAGE).astype("float32")
+    y8 = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
+    steps_a = 3
+
+    # (a) parity of the no-wd recipe
+    def cpu_run(order, build, labels, steps):
+        net = build("cpu")
+        run = _train(net, torch.from_numpy(x8[order]),
+                     torch.from_numpy(labels[order]), steps)
+        return [l[np.argsort(order)] for l in run[0]], run[1], run[2]
+
+    def build_gluon(device):
+        return _gluon_resnet(path, device)
+
+    t0 = time.perf_counter()
+    ref = cpu_run(np.arange(PARITY_BATCH), build_gluon, y8, steps_a)
+    others = [cpu_run(p, build_gluon, y8, steps_a)
+              for p in _reorderings(PARITY_BATCH)]
+    cpu_s = time.perf_counter() - t0
+    net = _gluon_resnet(path, None)
+    trainer_probe = gluon.Trainer(net.collect_params(), "sgd",
+                                  dict(TRAIN_OPT))
+    opt = trainer_probe._optimizer
+    zero_wd = sum(opt._get_wd(i) == 0.0
+                  for i in range(len(trainer_probe._params)))
+    check(zero_wd == NO_WD_PARAMS, f"{tag} {zero_wd} parameters without wd "
+                                   f"(want {NO_WD_PARAMS})")
+    with no_plain_stats_on_cuda(bs):
+        bs.bn_stats.launches = 0
+        card8 = _train(net, torch.from_numpy(x8).cuda(),
+                       torch.from_numpy(y8).cuda(), steps_a)
+        torch.cuda.synchronize()
+        launches = bs.bn_stats.launches
+    check(launches == BN_PER_FORWARD * steps_a,
+          f"{tag} {launches} bn-stats launches in {steps_a} forwards")
+    log(f"{tag} no-wd rule {NO_WD!r}: {zero_wd} of "
+        f"{len(trainer_probe._params)} parameters at wd 0; "
+        f"{1 + len(others)} CPU runs of "
+        f"{steps_a} steps at batch {PARITY_BATCH} in {cpu_s:.1f} s; card "
+        f"{launches} bn-stats launches")
+    _parity(tag, ref, others, card8, steps_a)
+    del trainer_probe, opt, card8, ref, others
+
+    # (b) the main path at batch 32
+    x = torch.from_numpy(rng.randn(TRAIN_BATCH, *IMAGE)
+                         .astype("float32")).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH)
+                         .astype("float32")).cuda()
+    net = _gluon_resnet(path, None)
+    with no_plain_stats_on_cuda(bs):
+        bs.bn_stats.launches = 0                 # phase 24's path starts
+        losses, step_ms = _timed_steps(net, x, y, WARM_STEPS, TIMED_STEPS)
+        torch.cuda.synchronize()
+        gluon_launches = bs.bn_stats.launches    # and ends
+    steps = WARM_STEPS + TIMED_STEPS
+    check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0],
+          f"{tag} losses {losses}")
+    check(gluon_launches == BN_PER_FORWARD * steps,
+          f"{tag} {gluon_launches} bn-stats launches in {steps} steps")
+    log(f"{tag} resnet50_v1 batch {TRAIN_BATCH} fp32 (TF32 off), name_scope "
+        f"+ no-wd: {TIMED_STEPS} timed steps {step_ms:.3f} ms each "
+        f"({TRAIN_BATCH * 1e3 / step_ms:.2f} images/s) beside phase 9's "
+        f"{train_ms:.3f} ms in this call; {gluon_launches} bn-stats "
+        f"launches ({gluon_launches // steps} per forward); losses "
+        f"{[round(l, 4) for l in losses]}; on {card}")
+
+    # (c) hybridize, one forward, export, imports
+    net.hybridize()
+    with torch.no_grad():
+        live = net(x)
+    stem = str(BUILD / "resnet50_v1_gluon")
+    files = net.export(stem)
+    check(files == (f"{stem}-symbol.json", f"{stem}-0000.params"),
+          f"{tag} export wrote {files}")
+    imported = gluon.SymbolBlock.imports(files[0], ["data"], files[1],
+                                         ctx=mx.gpu(0))
+    check(all(p.tensor().is_cuda for p in imported.collect_params()
+              .values()), f"{tag} imported parameters off the card")
+    served = imported(x)
+    err = float((served - live).abs().max() / live.abs().max())
+    check(served.shape == live.shape and err <= EXPORT_TOL,
+          f"{tag} imported logits {err:.3e} from the live net's")
+    with open(files[0]) as f:
+        n_nodes = len(json.load(f)["nodes"])
+    log(f"{tag} export: {n_nodes} graph nodes, "
+        f"{len(imported.collect_params())} parameters; "
+        f"SymbolBlock.imports(ctx=gpu(0)) logits at batch {TRAIN_BATCH} "
+        f"within {err:.3e} of the live net's max (tol {EXPORT_TOL:g})")
+    del net, imported, live, served
+
+    # (d) fine-tune an imported block with a Dense(10) head; the parity is
+    # on the export of phase 6's weights, which every call trains the same
+    fixed = _gluon_resnet(path, None)
+    fixed.hybridize()
+    with torch.no_grad():
+        fixed(x)
+    fixed_files = fixed.export(str(BUILD / "resnet50_v1_phase6"))
+    del fixed
+    head = (rng.randn(FT_CLASSES, 1000).astype("float32") * 0.01,
+            np.zeros(FT_CLASSES, "float32"))
+    y10 = rng.randint(0, FT_CLASSES, PARITY_BATCH).astype("float32")
+
+    def build_ft(device, pair=fixed_files):
+        return _finetune_net(pair, mx.cpu() if device == "cpu"
+                             else mx.gpu(0), head)
+
+    t0 = time.perf_counter()
+    ref = cpu_run(np.arange(PARITY_BATCH), build_ft, y10, PARITY_STEPS)
+    others = [cpu_run(p, build_ft, y10, PARITY_STEPS)
+              for p in _reorderings(PARITY_BATCH)]
+    cpu_s = time.perf_counter() - t0
+    ft = build_ft("cuda")
+    with no_plain_stats_on_cuda(bs):
+        bs.bn_stats.launches = 0
+        card8 = _train(ft, torch.from_numpy(x8).cuda(),
+                       torch.from_numpy(y10).cuda(), PARITY_STEPS)
+        torch.cuda.synchronize()
+        launches = bs.bn_stats.launches
+    check(launches == BN_PER_FORWARD * PARITY_STEPS,
+          f"{tag} fine-tune parity: {launches} bn-stats launches")
+    log(f"{tag} fine-tune parity (export of phase 6's weights): "
+        f"{1 + len(others)} CPU runs of {PARITY_STEPS} steps at "
+        f"batch {PARITY_BATCH} in {cpu_s:.1f} s; card {launches} launches")
+    _parity(f"{tag} fine-tune", ref, others, card8, PARITY_STEPS)
+    del ft, card8, ref, others
+    ft = build_ft("cuda", files)              # the main path: (c)'s export
+    y32 = torch.from_numpy(rng.randint(0, FT_CLASSES, TRAIN_BATCH)
+                           .astype("float32")).cuda()
+    with no_plain_stats_on_cuda(bs):
+        bs.bn_stats.launches = 0                 # the fine-tune path starts
+        ft_losses, ft_ms = _timed_steps(ft, x, y32, 1, 2)
+        torch.cuda.synchronize()
+        ft_launches = bs.bn_stats.launches       # and ends
+    check(all(math.isfinite(l) for l in ft_losses),
+          f"{tag} fine-tune losses {ft_losses}")
+    check(ft_launches == BN_PER_FORWARD * 3,
+          f"{tag} fine-tune: {ft_launches} bn-stats launches in 3 steps")
+    log(f"{tag} fine-tune of the imported block + Dense({FT_CLASSES}) at "
+        f"batch {TRAIN_BATCH}: 3 steps, losses "
+        f"{[round(l, 4) for l in ft_losses]}, {ft_launches} bn-stats "
+        f"launches ({ft_launches // 3} per forward), {ft_ms:.3f} ms a step "
+        f"(2 after 1 warm); on {card}")
+    return gluon_launches, ft_launches
+
+
+EXAMPLES = [("example/gluon/mnist.py", ["--epochs", "1", "--network",
+                                        "lenet"]),
+            ("example/amp/finetune_amp.py", ["--epochs", "1"])]
+
+
+def run_example(path, argv):
+    """``path`` run through the port: its source with ``mxnet_tpu`` read as
+    ``mxnet_tpu_torch`` (the file is not edited), ``main()`` called with
+    ``argv``.  Returns the mean loss of each training call of
+    ``SoftmaxCrossEntropyLoss`` and whether every one ran on the card."""
+    import types
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon import loss as gloss
+    src = (Path(__file__).resolve().parent / path).read_text()
+    mod = types.ModuleType(Path(path).stem)
+    mod.__file__ = str(Path(__file__).resolve().parent / path)
+    exec(compile(src.replace("mxnet_tpu", "mxnet_tpu_torch"), mod.__file__,
+                 "exec"), mod.__dict__)
+    seen = []
+    real = gloss.SoftmaxCrossEntropyLoss.forward
+
+    def recorded(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        if autograd.is_recording():
+            seen.append((float(out.detach().float().mean()), out.is_cuda))
+        return out
+
+    gloss.SoftmaxCrossEntropyLoss.forward = recorded
+    saved = sys.argv
+    sys.argv = [path] + argv
+    try:
+        mod.main()
+    finally:
+        sys.argv = saved
+        gloss.SoftmaxCrossEntropyLoss.forward = real
+        amp.deinit()
+    return [l for l, _ in seen], all(c for _, c in seen)
+
+
+def phase_gluon_examples(card):
+    """Phase 25: the repo's Gluon examples ``mnist.py`` (synthetic data)
+    and ``finetune_amp.py`` through the port on the card, with only the
+    import read as the port's, cut to one epoch; each must finish with its
+    loss falling (the mean of its last quarter of training calls below
+    its first quarter's)."""
+    for path, argv in EXAMPLES:
+        t0 = time.perf_counter()
+        losses, on_card = run_example(path, argv)
+        wall = time.perf_counter() - t0
+        q = max(1, len(losses) // 4)
+        first, last = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
+        check(losses and on_card, f"[gluon_examples] {path}: "
+                                  f"{len(losses)} losses, on card {on_card}")
+        check(all(math.isfinite(v) for v in losses) and last < first,
+              f"[gluon_examples] {path}: loss did not fall ({first:.4f} -> "
+              f"{last:.4f})")
+        log(f"[gluon_examples] {path} {' '.join(argv)}: {len(losses)} "
+            f"training steps on the card in {wall:.1f} s, mean loss of the "
+            f"first quarter {first:.4f}, last quarter {last:.4f}; on {card}")
+
+
+T_START = time.perf_counter()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -3293,6 +3624,11 @@ def main():
         f"9) and AMP {amp_train_ms:.3f} ms (phase 18) in this call; peak "
         f"{nhwc_peak / 2**30:.3f} and {nhwc_amp_peak / 2**30:.3f} GiB")
     phase_training_loop(card)
+    # slice 12: Gluon's authoring surface
+    bn["gluon_launches"], bn["symbolblock_launches"] = \
+        phase_gluon_authoring(bs, path, card, train_ms)
+    phase_gluon_examples(card)
+    log(f"[smoke] wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [record, rtc_record, bn, bn_cl]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ CPU (``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``).
 """
 from . import autograd, base, context, convert, gluon, initializer  # noqa
 from . import lr_scheduler, models, ndarray, ops, optimizer  # noqa: F401
-from . import random, rtc, serving  # noqa: F401
+from . import name, random, rtc, serving  # noqa: F401
 from . import telemetry  # noqa: F401
 from . import callback, executor, io, kvstore, metric, model  # noqa: F401
 from . import module, symbol  # noqa: F401

@@ -40,7 +40,8 @@ from .ndarray.ndarray import _write
 from .ops.nn import update_moving_stats
 from .symbol.symbol import LOSS_OPS, STOCHASTIC, _op_params
 
-__all__ = ["Executor", "check_single_context", "tensor_like"]
+__all__ = ["Executor", "check_single_context", "tensor_like", "graph_plan",
+           "walk"]
 
 
 def check_single_context(ctx):
@@ -66,6 +67,58 @@ def tensor_like(v, like):
     if not isinstance(t, torch.Tensor):
         t = torch.as_tensor(np.asarray(v))
     return t.to(device=like.device, dtype=like.dtype)
+
+
+def graph_plan(symbol, is_train, heads_at, device):
+    """``symbol``'s steps (``Symbol._plan``) with, for each, the output
+    slots to keep and the slots its inputs free: a value lives from the
+    node that makes it to its last consumer (or to the end, for a head in
+    ``heads_at``), so the walk holds no more than autograd saves.  An op
+    that makes its output from no input makes it on ``device``."""
+    steps = symbol._plan(is_train)
+    last = {s: i for i, step in enumerate(steps) for s in step[3]}
+    for s in heads_at:
+        last[s] = len(steps)
+    plan = []
+    for i, (node, fn, attrs, slots, aux) in enumerate(steps):
+        if not slots and _op_params(node.op)[2]:
+            attrs["ctx"] = device
+        keep = [j for j in range(node.num_outputs) if (id(node), j) in last]
+        free = [s for s in dict.fromkeys(slots) if last[s] == i]
+        plan.append((id(node), node.name, node.num_outputs, fn, attrs,
+                     slots, aux, node.op.name in STOCHASTIC, keep, free))
+    return plan
+
+
+def walk(plan, vals, device, aux_of=None, monitor=None):
+    """Run ``plan`` over ``vals`` (``{(node id, output): tensor}``, the
+    variables' values on entry, the heads' on exit), one op-table call a
+    node, under the caller's grad mode: torch autograd records the walk
+    where grad is enabled.  ``aux_of(name)`` gives the tensor of an
+    auxiliary state, into which a training BatchNorm folds its batch
+    statistics in place (``momentum``); ``None`` leaves them.
+    ``monitor(name, NDArray)`` sees every node's outputs."""
+    gen = None
+    for (key, name, n_out, fn, attrs, slots, aux, stochastic, keep,
+         free) in plan:
+        if stochastic:
+            # the device's generator now: mx.random.seed replaces it
+            gen = gen or _rnd.generator(device)
+            attrs = dict(attrs, generator=gen)
+        out = fn(*[vals[s] for s in slots], **attrs)
+        if not isinstance(out, (tuple, list)):
+            out = (out,)
+        for s in free:
+            del vals[s]
+        for i in keep:
+            vals[(key, i)] = out[i]
+        if aux is not None and aux_of is not None:
+            mean, var = (aux_of(n) for n in aux[1])
+            update_moving_stats(mean, var, out[1], out[2], aux[0])
+        if monitor is not None:
+            for i in range(n_out):
+                monitor(name if n_out == 1 else f"{name}_output{i}",
+                        NDArray(out[i].detach()))
 
 
 class Executor:
@@ -117,27 +170,10 @@ class Executor:
 
     # --------------------------------------------------------------- execute
     def _plan(self, is_train):
-        """The symbol's steps with, for each, the output slots to keep and
-        the slots its inputs free: a value lives from the node that makes
-        it to its last consumer (or to the end, for an output), so the
-        walk holds no more than autograd saves."""
         plan = self._plans.get(is_train)
         if plan is None:
-            steps = self._symbol._plan(is_train)
-            last = {s: i for i, step in enumerate(steps) for s in step[3]}
-            for s in self._heads_at:
-                last[s] = len(steps)
-            plan = []
-            for i, (node, fn, attrs, slots, aux) in enumerate(steps):
-                if not slots and _op_params(node.op)[2]:
-                    attrs["ctx"] = self._device
-                keep = [j for j in range(node.num_outputs)
-                        if (id(node), j) in last]
-                free = [s for s in dict.fromkeys(slots) if last[s] == i]
-                plan.append((id(node), node.name, node.num_outputs, fn,
-                             attrs, slots, aux, node.op.name in STOCHASTIC,
-                             keep, free))
-            self._plans[is_train] = plan
+            plan = self._plans[is_train] = graph_plan(
+                self._symbol, is_train, self._heads_at, self._device)
         return plan
 
     def _run(self, is_train, update_aux):
@@ -154,31 +190,12 @@ class Executor:
             if grads_wanted and self.grad_req.get(name, "write") != "null":
                 t = leaves[name] = t.detach().requires_grad_()
             vals[(key, 0)] = t
-        monitor = self._monitor if self._monitor and self._monitor[1] \
+        monitor = self._monitor[0] if self._monitor and self._monitor[1] \
             else None
-        gen = None
         with torch.set_grad_enabled(grads_wanted):
-            for (key, name, n_out, fn, attrs, slots, aux, stochastic, keep,
-                 free) in self._plan(is_train):
-                if stochastic:
-                    # the device's generator now: mx.random.seed replaces it
-                    gen = gen or _rnd.generator(self._device)
-                    attrs = dict(attrs, generator=gen)
-                out = fn(*[vals[s] for s in slots], **attrs)
-                if not isinstance(out, (tuple, list)):
-                    out = (out,)
-                for s in free:
-                    del vals[s]
-                for i in keep:
-                    vals[(key, i)] = out[i]
-                if aux is not None and update_aux:
-                    mean, var = (self.aux_dict[n]._data for n in aux[1])
-                    update_moving_stats(mean, var, out[1], out[2], aux[0])
-                if monitor is not None:
-                    for i in range(n_out):
-                        monitor[0](name if n_out == 1 else
-                                   f"{name}_output{i}",
-                                   NDArray(out[i].detach()))
+            walk(self._plan(is_train), vals, self._device,
+                 (lambda n: self.aux_dict[n]._data) if update_aux else None,
+                 monitor)
         return [vals[s] for s in self._heads_at], leaves
 
     def forward(self, is_train=False, **kwargs):

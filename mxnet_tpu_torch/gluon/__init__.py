@@ -1,5 +1,6 @@
 """Gluon surface of the port."""
-from . import loss, model_zoo, nn  # noqa: F401
-from .block import HybridBlock, io_signature  # noqa: F401
-from .parameter import Parameter  # noqa: F401
+from . import loss, model_zoo, nn, utils  # noqa: F401
+from .block import Block, HybridBlock, SymbolBlock, io_signature  # noqa
+from .parameter import (Constant, DeferredInitializationError,  # noqa
+                        Parameter, ParameterDict)
 from .trainer import Trainer  # noqa: F401

@@ -3,7 +3,14 @@
 1603.05027).
 
 Same blocks, same child names and so the same structural parameter names
-as the JAX package, so a JAX ``save_parameters`` file loads here as it is.
+as the JAX package, so a JAX ``save_parameters`` file loads here as it is;
+the same prefixes (``resnetv10_``, each stage ``stage{i}_``, the blocks
+and the bodies ``prefix=""``;
+``mxnet_tpu/gluon/model_zoo/vision/resnet.py:35-241``), so
+``collect_params()`` gives the JAX net's names
+(``resnetv10_stage1_conv0_weight``).  Each block runs a tensor
+``forward`` and carries the reference's ``hybrid_forward`` for
+``export``.
 As there, the stem convolution and the bottlenecks' 1x1 convolutions are
 built with ``in_channels=0`` and take their widths from the first forward
 or from ``load_parameters``.  ``layout`` is ``"NCHW"`` or ``"NHWC"``, as
@@ -53,17 +60,17 @@ class BasicBlockV1(HybridBlock):
     """Two 3x3 convolutions and an identity shortcut, post-activation."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__()
+                 layout="NCHW", device=None, *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         device = as_device(device)
-        self.body = nn.HybridSequential()
+        self.body = nn.HybridSequential(prefix="")
         self.body.add(_conv3x3(channels, stride, in_channels, layout, device))
         self.body.add(_bn(layout, device))
         self.body.add(nn.Activation("relu"))
         self.body.add(_conv3x3(channels, 1, channels, layout, device))
         self.body.add(_bn(layout, device))
         if downsample:
-            self.downsample = nn.HybridSequential()
+            self.downsample = nn.HybridSequential(prefix="")
             self.downsample.add(_conv1x1(channels, stride, in_channels,
                                          layout, device))
             self.downsample.add(_bn(layout, device))
@@ -75,16 +82,23 @@ class BasicBlockV1(HybridBlock):
         residual = x if self.downsample is None else self.downsample(x)
         return _relu(residual + out)
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
 
 class BottleneckV1(HybridBlock):
     """1x1-3x3-1x1 bottleneck, post-activation; the stride is on the first
     1x1."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__()
+                 layout="NCHW", device=None, *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         device = as_device(device)
-        self.body = nn.HybridSequential()
+        self.body = nn.HybridSequential(prefix="")
         self.body.add(_conv1x1(channels // 4, stride, 0, layout, device))
         self.body.add(_bn(layout, device))
         self.body.add(nn.Activation("relu"))
@@ -95,7 +109,7 @@ class BottleneckV1(HybridBlock):
         self.body.add(_conv1x1(channels, 1, 0, layout, device))
         self.body.add(_bn(layout, device))
         if downsample:
-            self.downsample = nn.HybridSequential()
+            self.downsample = nn.HybridSequential(prefix="")
             self.downsample.add(_conv1x1(channels, stride, in_channels,
                                          layout, device))
             self.downsample.add(_bn(layout, device))
@@ -107,13 +121,20 @@ class BottleneckV1(HybridBlock):
         residual = x if self.downsample is None else self.downsample(x)
         return _relu(out + residual)
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
 
 class BasicBlockV2(HybridBlock):
     """Pre-activation basic block."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__()
+                 layout="NCHW", device=None, *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         device = as_device(device)
         self.bn1 = _bn(layout, device)
         self.conv1 = _conv3x3(channels, stride, in_channels, layout, device)
@@ -132,13 +153,22 @@ class BasicBlockV2(HybridBlock):
         x = _relu(self.bn2(x))
         return self.conv2(x) + residual
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        return self.conv2(x) + residual
+
 
 class BottleneckV2(HybridBlock):
     """Pre-activation bottleneck; the stride is on the 3x3."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__()
+                 layout="NCHW", device=None, *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         device = as_device(device)
         self.bn1 = _bn(layout, device)
         self.conv1 = _conv1x1(channels // 4, 1, 0, layout, device)
@@ -162,14 +192,30 @@ class BottleneckV2(HybridBlock):
         x = _relu(self.bn3(x))
         return self.conv3(x) + residual
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        x = F.Activation(self.bn3(x), act_type="relu")
+        return self.conv3(x) + residual
 
-def _stage(block, layers, channels, stride, in_channels, layout, device):
-    stage = nn.HybridSequential()
-    stage.add(block(channels, stride, channels != in_channels,
-                    in_channels=in_channels, layout=layout, device=device))
-    for _ in range(layers - 1):
-        stage.add(block(channels, 1, False, in_channels=channels,
-                        layout=layout, device=device))
+
+def _stage(block, layers, channels, stride, stage_index, in_channels,
+           layout, device):
+    """Stage ``stage_index``: a ``HybridSequential`` prefixed
+    ``stage{i}_`` whose blocks share its scope (``prefix=""``)."""
+    stage = nn.HybridSequential(prefix=f"stage{stage_index}_")
+    with stage.name_scope():
+        stage.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, layout=layout,
+                        device=device, prefix=""))
+        for _ in range(layers - 1):
+            stage.add(block(channels, 1, False, in_channels=channels,
+                            layout=layout, device=device, prefix=""))
     return stage
 
 
@@ -177,28 +223,36 @@ class ResNetV1(HybridBlock):
     """ResNet V1: stem, four stages, global average pool, classifier."""
 
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, layout="NCHW", device=None):
-        super().__init__()
+                 thumbnail=False, layout="NCHW", device=None, *,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if len(layers) != len(channels) - 1:
             raise ValueError("one channel count per stage plus the stem's")
         device = as_device(device)
-        self.features = nn.HybridSequential()
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 0, layout, device))
-        else:
-            self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                                        layout=layout, device=device))
-            self.features.add(_bn(layout, device))
-            self.features.add(nn.Activation("relu"))
-            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
-        for i, num_layer in enumerate(layers):
-            self.features.add(_stage(block, num_layer, channels[i + 1],
-                                     1 if i == 0 else 2, channels[i],
-                                     layout, device))
-        self.features.add(nn.GlobalAvgPool2D(layout=layout))
-        self.output = nn.Dense(classes, in_units=channels[-1], device=device)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout,
+                                           device))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout,
+                                            device=device))
+                self.features.add(_bn(layout, device))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            for i, num_layer in enumerate(layers):
+                self.features.add(_stage(block, num_layer, channels[i + 1],
+                                         1 if i == 0 else 2, i + 1,
+                                         channels[i], layout, device))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.output = nn.Dense(classes, in_units=channels[-1],
+                                   device=device)
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 
@@ -207,34 +261,42 @@ class ResNetV2(HybridBlock):
     BatchNorm and ReLU, global average pool, classifier."""
 
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, layout="NCHW", device=None):
-        super().__init__()
+                 thumbnail=False, layout="NCHW", device=None, *,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if len(layers) != len(channels) - 1:
             raise ValueError("one channel count per stage plus the stem's")
         device = as_device(device)
-        self.features = nn.HybridSequential()
-        self.features.add(_bn(layout, device, scale=False, center=False))
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 0, layout, device))
-        else:
-            self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                                        layout=layout, device=device))
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(_bn(layout, device, scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout,
+                                           device))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout,
+                                            device=device))
+                self.features.add(_bn(layout, device))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                self.features.add(_stage(block, num_layer, channels[i + 1],
+                                         1 if i == 0 else 2, i + 1,
+                                         in_channels, layout, device))
+                in_channels = channels[i + 1]
             self.features.add(_bn(layout, device))
             self.features.add(nn.Activation("relu"))
-            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
-        in_channels = channels[0]
-        for i, num_layer in enumerate(layers):
-            self.features.add(_stage(block, num_layer, channels[i + 1],
-                                     1 if i == 0 else 2, in_channels,
-                                     layout, device))
-            in_channels = channels[i + 1]
-        self.features.add(_bn(layout, device))
-        self.features.add(nn.Activation("relu"))
-        self.features.add(nn.GlobalAvgPool2D(layout=layout))
-        self.features.add(nn.Flatten())
-        self.output = nn.Dense(classes, in_units=in_channels, device=device)
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels,
+                                   device=device)
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

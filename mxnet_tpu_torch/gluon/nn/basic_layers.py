@@ -1,16 +1,24 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``).
 
 Each layer takes the JAX package's arguments in its order, with its
-defaults (``mxnet_tpu/gluon/nn/basic_layers.py``), but for ``prefix`` and
-``params``; ``dtype`` is a name (``"float32"``) or a ``torch.dtype``, and
-``device`` (keyword only) is where the parameters are allocated at
-construction.  ``HybridBlock.initialize`` fills them, with a layer's
+defaults; ``prefix`` and ``params`` (keyword only) name it and share
+parameters as in MXNet, ``dtype`` is a name (``"float32"``) or a
+``torch.dtype``, and ``device`` (keyword only) is where the parameters are
+allocated at construction (without it they are placed by ``initialize``,
+``gluon/parameter.py``).  Each parameter is a tensor attribute
+(``self.weight``) with its Gluon ``Parameter`` under the prefixed name
+(``dense0_weight``); ``initialize`` fills it, with a layer's
 ``*_initializer`` for its own.  ``Dense(in_units=0)``,
-``BatchNorm(in_channels=0)`` and ``LayerNorm(in_channels=0)`` defer their
-shapes to the first forward or to ``load_parameters``, as Gluon does.
-Each layer that the JAX package runs through an op on one of AMP's lists
-(``FullyConnected``, ``LayerNorm``, ``BatchNorm``) passes its inputs
-through AMP's policy (``ops.registry.amp_inputs``) first.
+``BatchNorm(in_channels=0)``, ``LayerNorm(in_channels=0)`` and
+``InstanceNorm(in_channels=0)`` defer their shapes to the first forward or
+to ``load_parameters``, as Gluon does.
+
+Each layer runs a tensor ``forward`` eagerly and carries the reference's
+``hybrid_forward`` (``F.FullyConnected``, ``F.BatchNorm``...), which
+``export`` traces with ``F = mx.sym``.  Each layer that the JAX package
+runs through an op on one of AMP's lists (``FullyConnected``,
+``LayerNorm``, ``BatchNorm``) passes its inputs through AMP's policy
+(``ops.registry.amp_inputs``) first.
 """
 from __future__ import annotations
 
@@ -18,52 +26,72 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ... import autograd
+from ... import ndarray as _nd
 from ...base import torch_dtype
 from ...ops import nn as ops
 from ...ops.registry import amp_inputs
-from ..block import HybridBlock, is_deferred
+from ..block import Block, HybridBlock, is_deferred
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
-           "BatchNorm", "Flatten"]
-
-def _param(shape, dtype, device, requires_grad=True):
-    """A parameter of ``shape``, or a deferred one when a width is 0."""
-    if 0 in shape:
-        return nn.UninitializedParameter(requires_grad, device=device,
-                                         dtype=dtype)
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad)
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "Embedding", "LayerNorm", "BatchNorm", "InstanceNorm", "Flatten",
+           "Lambda", "HybridLambda"]
 
 
-def _buffer(shape, dtype, device):
-    if 0 in shape:
-        return nn.UninitializedBuffer(device=device, dtype=dtype)
-    return torch.empty(shape, dtype=dtype, device=device)
-
-
-class HybridSequential(HybridBlock):
-    """Stacks blocks; children are named ``0, 1, ...`` in the state dict."""
+class _SequentialMixin:
+    """``add``, indexing, ``len`` and iteration over the children."""
 
     def add(self, *blocks):
+        """Append blocks, named ``0, 1, ...``."""
         for block in blocks:
-            self.add_module(str(len(self._modules)), block)
+            self.register_child(block)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._children)
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+
+class Sequential(_SequentialMixin, Block):
+    """Stacks blocks (``mxnet_tpu/gluon/nn/basic_layers.py:18``); its
+    children take what it is given (NDArrays stay NDArrays)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+
+class HybridSequential(_SequentialMixin, HybridBlock):
+    """Stacks hybrid blocks; children are named ``0, 1, ...`` in the state
+    dict."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
 
     def forward(self, x):
         for block in self._modules.values():
             x = block(x)
         return x
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
-
-    def __len__(self):
-        return len(self._modules)
-
-    def __iter__(self):
-        return iter(self._modules.values())
+    def hybrid_forward(self, F, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
 
 
 class Dense(HybridBlock):
@@ -75,39 +103,52 @@ class Dense(HybridBlock):
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", in_units=0, *, device=None):
-        super().__init__()
+                 bias_initializer="zeros", in_units=0, *, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
         dtype = torch_dtype(dtype)
         self._units = units
         self._flatten = flatten
-        self.weight = _param((units, in_units), dtype, device)
-        self.bias = nn.Parameter(torch.empty(units, dtype=dtype,
-                                             device=device)) \
-            if use_bias else None
-        self._param_inits = {"weight": weight_initializer,
-                             "bias": bias_initializer}
         if activation is not None and activation not in ops._ACT:
             raise ValueError(f"unknown activation {activation!r}")
         self._act_type = activation
+        self.weight = self._new_param("weight", (units, in_units), dtype,
+                                      device, init=weight_initializer)
+        self.bias = self._new_param("bias", (units,), dtype, device,
+                                    init=bias_initializer) \
+            if use_bias else None
 
     def forward(self, x):
         if is_deferred(self.weight):
             in_units = math.prod(x.shape[1:]) if self._flatten \
                 else x.shape[-1]
-            self._materialize({"weight": (self._units, in_units)},
-                              x.device)
+            self._reg_params["weight"]._finish_deferred_init(
+                (self._units, in_units), x.device)
         x, w, b = amp_inputs("FullyConnected", x, self.weight, self.bias)
         y = ops.fully_connected(x, w, b, self._flatten)
         return y if self._act_type is None else ops.activation(
             y, self._act_type)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        args = (x, weight) if bias is None else (x, weight, bias)
+        y = F.FullyConnected(*args, no_bias=bias is None,
+                             num_hidden=self._units, flatten=self._flatten,
+                             name="fwd")
+        return y if self._act_type is None else F.Activation(
+            y, act_type=self._act_type)
+
+    def __repr__(self):
+        shape = self._reg_params["weight"].shape
+        return (f"Dense({shape[1] if shape[1] else None} -> {shape[0]}, "
+                f"{'linear' if self._act_type is None else self._act_type})")
 
 
 class Dropout(HybridBlock):
     """Dropout; the identity unless ``autograd.is_training()``.  ``axes``
     shares the mask along those axes (the ``Dropout`` op's)."""
 
-    def __init__(self, rate, axes=()):
-        super().__init__()
+    def __init__(self, rate, axes=(), *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._rate = rate
         self._axes = tuple(axes)
 
@@ -119,6 +160,14 @@ class Dropout(HybridBlock):
                                    __training__=True)
         return F.dropout(x, self._rate, training=True)
 
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes, name="fwd")
+        return F._copy(x)
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
+
 
 class Embedding(HybridBlock):
     """Index -> vector lookup over a ``(input_dim, output_dim)`` table.
@@ -127,46 +176,119 @@ class Embedding(HybridBlock):
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, *,
-                 device=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            input_dim, output_dim, dtype=torch_dtype(dtype), device=device))
-        self._param_inits = {"weight": weight_initializer}
+                 prefix=None, params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._input_dim, self._output_dim = input_dim, output_dim
+        self._dtype_name = str(dtype)
+        self.weight = self._new_param("weight", (input_dim, output_dim),
+                                      torch_dtype(dtype), device,
+                                      init=weight_initializer)
 
     def forward(self, x):
         return ops.embedding(x, self.weight)
 
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim, name="fwd")
 
-class LayerNorm(HybridBlock):
+    def __repr__(self):
+        return (f"Embedding({self._input_dim} -> {self._output_dim}, "
+                f"{self._dtype_name})")
+
+
+class _Norm(HybridBlock):
+    """gamma and beta over one axis; ``center=False`` keeps beta at its
+    initial zero and ``scale=False`` gamma at one, neither then taking a
+    gradient."""
+
+    def _norm_params(self, in_channels, center, scale, gamma_initializer,
+                     beta_initializer, dtype, device):
+        shape = (in_channels,)
+        self.gamma = self._new_param(
+            "gamma", shape, dtype, device, init=gamma_initializer,
+            grad_req="write" if scale else "null", differentiable=scale)
+        self.beta = self._new_param(
+            "beta", shape, dtype, device, init=beta_initializer,
+            grad_req="write" if center else "null", differentiable=center)
+
+    def _materialize(self, names, channels, device):
+        for name in names:
+            self._reg_params[name]._finish_deferred_init((channels,), device)
+
+    def __repr__(self):
+        content = ", ".join(f"{k}={v!r}" for k, v in self._kwargs.items())
+        c = self._reg_params["gamma"].shape[0]
+        return f"{type(self).__name__}({content}, in_channels={c or None})"
+
+
+class LayerNorm(_Norm):
     """Layer normalisation over ``axis`` with learnable ``gamma``/``beta``;
-    ``in_channels=0`` defers their width to the first forward.
-    ``center=False`` keeps beta at its initial zero and ``scale=False``
-    gamma at one; neither then takes a gradient
+    ``in_channels=0`` defers their width to the first forward
     (``mxnet_tpu/gluon/nn/basic_layers.py:330-352``)."""
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, *, dtype=torch.float32, device=None):
-        super().__init__()
-        dtype = torch_dtype(dtype)
+                 in_channels=0, *, prefix=None, params=None,
+                 dtype=torch.float32, device=None):
+        super().__init__(prefix=prefix, params=params)
         self._axis = axis
         self._epsilon = epsilon
-        self.gamma = _param((in_channels,), dtype, device,
-                            requires_grad=scale)
-        self.beta = _param((in_channels,), dtype, device,
-                           requires_grad=center)
-        self._param_inits = {"gamma": gamma_initializer,
-                             "beta": beta_initializer}
+        self._kwargs = {"eps": epsilon, "axis": axis, "center": center,
+                        "scale": scale}
+        self._norm_params(in_channels, center, scale, gamma_initializer,
+                          beta_initializer, torch_dtype(dtype), device)
 
     def forward(self, x):
         if is_deferred(self.gamma):
-            c = (x.shape[self._axis],)
-            self._materialize({"gamma": c, "beta": c}, x.device)
+            self._materialize(("gamma", "beta"), x.shape[self._axis],
+                              x.device)
         x, gamma, beta = amp_inputs("LayerNorm", x, self.gamma, self.beta)
         return ops.layer_norm(x, gamma, beta, self._axis, self._epsilon)
 
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma=gamma, beta=beta, axis=self._axis,
+                           eps=self._epsilon)
 
-class BatchNorm(HybridBlock):
+
+class InstanceNorm(_Norm):
+    """Instance normalisation: each sample's channels normalised over their
+    spatial axes (``mxnet_tpu/gluon/nn/basic_layers.py:283``), then
+    ``gamma``/``beta`` on ``axis``; ``scale`` is off by default, as
+    there."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, *, prefix=None, params=None,
+                 dtype=torch.float32, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        self._kwargs = {"eps": epsilon, "axis": axis, "center": center,
+                        "scale": scale}
+        self._norm_params(in_channels, center, scale, gamma_initializer,
+                          beta_initializer, torch_dtype(dtype), device)
+
+    def forward(self, x):
+        if is_deferred(self.gamma):
+            self._materialize(("gamma", "beta"), x.shape[self._axis],
+                              x.device)
+        if self._axis == 1:
+            return ops.instance_norm(x, self.gamma, self.beta, self._epsilon)
+        x = x.transpose(1, self._axis)
+        return ops.instance_norm(x, self.gamma, self.beta,
+                                 self._epsilon).transpose(1, self._axis)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon,
+                                  name="fwd")
+        x = F.swapaxes(x, dim1=1, dim2=self._axis)
+        return F.swapaxes(F.InstanceNorm(x, gamma, beta, eps=self._epsilon,
+                                         name="fwd"),
+                          dim1=1, dim2=self._axis)
+
+
+class BatchNorm(_Norm):
     """Batch normalisation over ``axis`` with learnable ``gamma``/``beta``
     and the buffers ``running_mean``/``running_var``
     (``mxnet_tpu/gluon/nn/basic_layers.py:180``).  ``scale=False`` fixes
@@ -184,23 +306,29 @@ class BatchNorm(HybridBlock):
                  beta_initializer="zeros", gamma_initializer="ones",
                  running_mean_initializer="zeros",
                  running_variance_initializer="ones", in_channels=0, *,
-                 dtype=torch.float32, device=None):
-        super().__init__()
+                 prefix=None, params=None, dtype=torch.float32,
+                 device=None):
+        super().__init__(prefix=prefix, params=params)
         dtype = torch_dtype(dtype)
-        self._param_inits = {"gamma": gamma_initializer,
-                             "beta": beta_initializer,
-                             "running_mean": running_mean_initializer,
-                             "running_var": running_variance_initializer}
         self._axis = axis
         self._momentum = momentum
         self._epsilon = epsilon
         self._fix_gamma = not scale
         self._use_global_stats = use_global_stats
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self._norm_params(in_channels, center, scale, gamma_initializer,
+                          beta_initializer, dtype, device)
         shape = (in_channels,)
-        self.gamma = _param(shape, dtype, device, requires_grad=scale)
-        self.beta = _param(shape, dtype, device, requires_grad=center)
-        self.register_buffer("running_mean", _buffer(shape, dtype, device))
-        self.register_buffer("running_var", _buffer(shape, dtype, device))
+        self.running_mean = self._new_param(
+            "running_mean", shape, dtype, device,
+            init=running_mean_initializer, grad_req="null",
+            differentiable=False, buffer=True)
+        self.running_var = self._new_param(
+            "running_var", shape, dtype, device,
+            init=running_variance_initializer, grad_req="null",
+            differentiable=False, buffer=True)
 
     @staticmethod
     def _param_dtype(dtype):
@@ -211,9 +339,9 @@ class BatchNorm(HybridBlock):
 
     def forward(self, x):
         if is_deferred(self.gamma):
-            c = (x.shape[self._axis],)
-            self._materialize({"gamma": c, "beta": c, "running_mean": c,
-                               "running_var": c}, x.device)
+            self._materialize(("gamma", "beta", "running_mean",
+                               "running_var"), x.shape[self._axis],
+                              x.device)
         # the running statistics are auxiliary inputs: AMP never casts them
         x, gamma, beta = amp_inputs("BatchNorm", x, self.gamma, self.beta)
         args = (x, gamma, beta, self.running_mean, self.running_var,
@@ -225,9 +353,78 @@ class BatchNorm(HybridBlock):
                                 var, self._momentum)
         return out
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           name="fwd", **self._kwargs)
+
 
 class Flatten(HybridBlock):
     """``(N, ...) -> (N, prod(...))``."""
 
+    def __init__(self, *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
     def forward(self, x):
         return ops.flatten(x)
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Lambda(Block):
+    """A function, or the name of an ``mx.nd`` function, as a block
+    (``mxnet_tpu/gluon/nn/basic_layers.py:374``); it takes what it is
+    given (NDArrays stay NDArrays)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not hasattr(_nd, function):
+                raise AssertionError(f"Function name {function} is not "
+                                     f"found in ndarray.")
+            self._func_impl = getattr(_nd, function)
+        elif callable(function):
+            self._func_impl = function
+        else:
+            raise ValueError(f"Unrecognized function in lambda: {function} "
+                             f"of type {type(function)}")
+        self._func_name = getattr(self._func_impl, "__name__", "custom")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return f"Lambda({self._func_name})"
+
+
+class HybridLambda(HybridBlock):
+    """A function ``f(F, x, *args)``, or the name of an op in both ``mx.nd``
+    and ``mx.sym``, as a hybrid block
+    (``mxnet_tpu/gluon/nn/basic_layers.py:400``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        from ... import symbol as _sym
+        if isinstance(function, str):
+            if not (hasattr(_nd, function) and hasattr(_sym, function)):
+                raise AssertionError(f"Function name {function} is not "
+                                     f"found in symbol/ndarray.")
+            funcs = {_nd: getattr(_nd, function),
+                     _sym: getattr(_sym, function)}
+            self._func = lambda F, *args: funcs[F](*args)
+            self._func_name = function
+        elif callable(function):
+            self._func = function
+            self._func_name = getattr(function, "__name__", "custom")
+        else:
+            raise ValueError(f"Unrecognized function in lambda: {function} "
+                             f"of type {type(function)}")
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return f"HybridLambda({self._func_name})"

@@ -1,6 +1,7 @@
 """Convolution and pooling layers (counterpart of
 ``mxnet_tpu/gluon/nn/conv_layers.py``: ``_Conv``/``Conv1D``/``Conv2D``/
-``Conv3D`` :24-200 and the 2-D pooling layers :246-403).
+``Conv3D`` :24-200, the 2-D pooling layers :246-403, the global ones and
+``ReflectionPad2D`` :371-423).
 
 Channel-first and channel-last layouts, as the JAX package: the weight
 follows the data's layout, ``(channels, in_channels / groups, *kernel)``
@@ -8,26 +9,28 @@ for NCW/NCHW/NCDHW and ``(channels, *kernel, in_channels / groups)`` for
 NWC/NHWC/NDHWC (``mxnet_tpu/gluon/nn/conv_layers.py:70-89``), so a JAX
 ``.params`` file of either layout loads as it is.  ``in_channels=0``
 defers the weight to the first forward or to ``load_parameters``.  Each
-layer takes the JAX package's arguments in its order, with its defaults,
-but for ``prefix`` and ``params``; ``dtype`` (a name or a ``torch.dtype``)
-and ``device`` are keyword only.
-Pooling is 2-D only (NCHW, NHWC); 1-D and 3-D pooling wait for ROADMAP.md
-queue 1 item 6, as the transposed convolutions do.
+layer takes the JAX package's arguments in its order, with its defaults;
+``prefix``, ``params``, ``dtype`` (a name or a ``torch.dtype``) and
+``device`` are keyword only.  A convolution's alias is ``conv``
+(``conv0_weight``), a pool's ``pool``.
+Windowed pooling is 2-D only (NCHW, NHWC); ``GlobalMaxPool1D`` (the text
+CNN example's) pools 1-D data.  The other 1-D and 3-D pools wait for
+ROADMAP.md queue 1 item 6, as the transposed convolutions do.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...base import torch_dtype
+from ...ops import matrix
 from ...ops import nn as ops
 from ...ops.registry import amp_inputs
 from ..block import HybridBlock, is_deferred
 from .activations import Activation
-from .basic_layers import _param
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool2D", "AvgPool2D",
-           "GlobalAvgPool2D"]
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalAvgPool2D",
+           "ReflectionPad2D"]
 
 
 def _check_layout(layout, allowed):
@@ -41,8 +44,9 @@ class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", dtype=torch.float32, device=None):
-        super().__init__()
+                 bias_initializer="zeros", dtype=torch.float32, device=None,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         dtype = torch_dtype(dtype)
         nd = len(kernel_size)
         self._channels = channels
@@ -53,14 +57,19 @@ class _Conv(HybridBlock):
         self._groups = groups
         self._layout = layout
         self._caxis = layout.index("C")
-        self.weight = _param(self._weight_shape(in_channels), dtype, device)
-        self.bias = nn.Parameter(torch.empty(channels, dtype=dtype,
-                                             device=device)) \
+        self.weight = self._new_param("weight",
+                                      self._weight_shape(in_channels),
+                                      dtype, device,
+                                      init=weight_initializer)
+        self.bias = self._new_param("bias", (channels,), dtype, device,
+                                    init=bias_initializer) \
             if use_bias else None
-        self._param_inits = {"weight": weight_initializer,
-                             "bias": bias_initializer}
-        self.act = Activation(activation) if activation is not None \
-            else None
+        with self.name_scope():
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
+
+    def _alias(self):
+        return "conv"
 
     def _weight_shape(self, in_channels):
         ic = in_channels // self._groups
@@ -70,13 +79,39 @@ class _Conv(HybridBlock):
 
     def forward(self, x):
         if is_deferred(self.weight):
-            self._materialize(
-                {"weight": self._weight_shape(x.shape[self._caxis])},
-                x.device)
+            self._reg_params["weight"]._finish_deferred_init(
+                self._weight_shape(x.shape[self._caxis]), x.device)
         x, w, b = amp_inputs("Convolution", x, self.weight, self.bias)
         y = ops.convolution(x, w, b, self._stride, self._pad, self._dilate,
                             self._groups, self._layout)
         return y if self.act is None else self.act(y)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        args = (x, weight) if bias is None else (x, weight, bias)
+        y = F.Convolution(*args, kernel=self._kernel, stride=self._stride,
+                          dilate=self._dilate, pad=self._pad,
+                          num_filter=self._channels,
+                          num_group=self._groups, no_bias=bias is None,
+                          layout=self._layout, name="fwd")
+        return y if self.act is None else self.act(y)
+
+    def __repr__(self):
+        s = f"{type(self).__name__}("
+        shape = self._reg_params["weight"].shape
+        cin = shape[1] if self._caxis == 1 else shape[-1]
+        s += f"{cin or None} -> {shape[0]}, kernel_size={self._kernel}, "
+        s += f"stride={self._stride}"
+        if any(self._pad):
+            s += f", padding={self._pad}"
+        if any(d != 1 for d in self._dilate):
+            s += f", dilation={self._dilate}"
+        if self._groups != 1:
+            s += f", groups={self._groups}"
+        if self.bias is None:
+            s += ", bias=False"
+        if self.act is not None:
+            s += f", {self.act!r}"
+        return s + ")"
 
 
 class Conv1D(_Conv):
@@ -85,13 +120,13 @@ class Conv1D(_Conv):
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout="NCW", activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, *,
-                 dtype=torch.float32, device=None):
+                 bias_initializer="zeros", in_channels=0, *, prefix=None,
+                 params=None, dtype=torch.float32, device=None):
         _check_layout(layout, ("NCW", "NWC"))
         super().__init__(channels, ops._tuple(kernel_size, 1, 1), strides,
                          padding, dilation, groups, layout, in_channels,
                          activation, use_bias, weight_initializer,
-                         bias_initializer, dtype, device)
+                         bias_initializer, dtype, device, prefix, params)
 
 
 class Conv2D(_Conv):
@@ -100,13 +135,13 @@ class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, *,
-                 dtype=torch.float32, device=None):
+                 bias_initializer="zeros", in_channels=0, *, prefix=None,
+                 params=None, dtype=torch.float32, device=None):
         _check_layout(layout, ("NCHW", "NHWC"))
         super().__init__(channels, ops._tuple(kernel_size, 2, 1), strides,
                          padding, dilation, groups, layout, in_channels,
                          activation, use_bias, weight_initializer,
-                         bias_initializer, dtype, device)
+                         bias_initializer, dtype, device, prefix, params)
 
 
 class Conv3D(_Conv):
@@ -116,12 +151,13 @@ class Conv3D(_Conv):
                  padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
                  layout="NCDHW", activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 in_channels=0, *, dtype=torch.float32, device=None):
+                 in_channels=0, *, prefix=None, params=None,
+                 dtype=torch.float32, device=None):
         _check_layout(layout, ("NCDHW", "NDHWC"))
         super().__init__(channels, ops._tuple(kernel_size, 3, 1), strides,
                          padding, dilation, groups, layout, in_channels,
                          activation, use_bias, weight_initializer,
-                         bias_initializer, dtype, device)
+                         bias_initializer, dtype, device, prefix, params)
 
 
 class _Pooling(HybridBlock):
@@ -130,9 +166,8 @@ class _Pooling(HybridBlock):
 
     def __init__(self, pool_size, strides, padding, ceil_mode=False,
                  global_pool=False, pool_type="max", count_include_pad=True,
-                 layout="NCHW"):
-        super().__init__()
-        _check_layout(layout, ("NCHW", "NHWC"))
+                 layout="NCHW", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         nd = len(pool_size)
         self._kwargs = {
             "kernel": tuple(pool_size),
@@ -143,30 +178,87 @@ class _Pooling(HybridBlock):
             "pooling_convention": "full" if ceil_mode else "valid",
             "count_include_pad": count_include_pad, "layout": layout}
 
+    def _alias(self):
+        return "pool"
+
     def forward(self, x):
         return ops.pooling(x, **self._kwargs)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, name="fwd", **self._kwargs)
+
+    def __repr__(self):
+        k = self._kwargs
+        return (f"{type(self).__name__}(size={k['kernel']}, "
+                f"stride={k['stride']}, padding={k['pad']}, "
+                f"ceil_mode={k['pooling_convention'] == 'full'}, "
+                f"global_pool={k['global_pool']}, "
+                f"pool_type={k['pool_type']})")
 
 
 class MaxPool2D(_Pooling):
     """2-D max pooling over NCHW or NHWC data."""
 
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", ceil_mode=False):
+                 layout="NCHW", ceil_mode=False, *, prefix=None,
+                 params=None):
+        _check_layout(layout, ("NCHW", "NHWC"))
         super().__init__(ops._tuple(pool_size, 2, 1), strides, padding,
-                         ceil_mode, False, "max", layout=layout)
+                         ceil_mode, False, "max", layout=layout,
+                         prefix=prefix, params=params)
 
 
 class AvgPool2D(_Pooling):
     """2-D average pooling over NCHW or NHWC data."""
 
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 ceil_mode=False, layout="NCHW", count_include_pad=True):
+                 ceil_mode=False, layout="NCHW", count_include_pad=True, *,
+                 prefix=None, params=None):
+        _check_layout(layout, ("NCHW", "NHWC"))
         super().__init__(ops._tuple(pool_size, 2, 1), strides, padding,
-                         ceil_mode, False, "avg", count_include_pad, layout)
+                         ceil_mode, False, "avg", count_include_pad, layout,
+                         prefix=prefix, params=params)
 
 
-class GlobalAvgPool2D(_Pooling):
+def _global(pool_type, layouts):
+    """A global pooling layer over the spatial axes of ``layouts``."""
+
+    class _GlobalPool(_Pooling):
+        def __init__(self, layout=layouts[0], *, prefix=None, params=None):
+            _check_layout(layout, layouts)
+            nd = len(layout) - 2
+            super().__init__((1,) * nd, None, 0, True, True, pool_type,
+                             layout=layout, prefix=prefix, params=params)
+
+    return _GlobalPool
+
+
+class GlobalMaxPool1D(_global("max", ("NCW", "NWC"))):
+    """Max over W, keeping it as 1."""
+
+
+class GlobalMaxPool2D(_global("max", ("NCHW", "NHWC"))):
+    """Max over H and W, keeping them as 1."""
+
+
+class GlobalAvgPool2D(_global("avg", ("NCHW", "NHWC"))):
     """Mean over H and W, keeping them as 1."""
 
-    def __init__(self, layout="NCHW"):
-        super().__init__((1, 1), None, 0, True, True, "avg", layout=layout)
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of H and W of NCHW data; ``padding`` is an int or
+    MXNet's 8-tuple ``pad_width``."""
+
+    def __init__(self, padding=0, *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        if len(padding) != 8:
+            raise AssertionError("padding must be an int or 8 values")
+        self._padding = tuple(padding)
+
+    def forward(self, x):
+        return matrix.pad(x, mode="reflect", pad_width=self._padding)
+
+    def hybrid_forward(self, F, x):
+        return F.Pad(x, mode="reflect", pad_width=self._padding)

@@ -2,7 +2,8 @@
 one device needs): applies an optimizer to a set of ``Parameter``s.
 
 With one device there is nothing to reduce: ``allreduce_grads`` does no
-work and no kvstore is made (multi-device training is ROADMAP queue 10).
+work and no kvstore is made (multi-device training is ROADMAP queue 1
+item 9).
 ``step`` records the ``trainer.step`` and ``trainer.update`` spans and the
 ``trainer.steps`` counter on the telemetry bus when it is enabled.
 ``contrib.amp.init_trainer`` gives a Trainer a loss scaler
@@ -24,12 +25,15 @@ __all__ = ["Trainer"]
 
 class Trainer:
     """``Trainer(params, optimizer, optimizer_params)``
-    (``mxnet_tpu/gluon/trainer.py:25``).  ``params`` is a dict (taken in
-    the order of its sorted names, e.g. ``net.collect_params()``) or a list
-    of ``Parameter``s; ``optimizer`` a name (``"sgd"``, ``"adam"``) or an
-    ``Optimizer``, and ``optimizer_params`` its keyword arguments, an
-    ``lr_scheduler`` among them.  ``kvstore`` is accepted for MXNet's
-    signature; one device uses none."""
+    (``mxnet_tpu/gluon/trainer.py:25``).  ``params`` is a
+    ``ParameterDict`` or dict (taken in the order of its sorted names:
+    ``net.collect_params()``'s prefixed names give the JAX package's
+    order) or a list of ``Parameter``s; each parameter's ``lr_mult`` and
+    ``wd_mult`` reach the optimizer (``collect_params('.*beta|.*gamma|
+    .*bias').setattr('wd_mult', 0.0)``); ``optimizer`` a name (``"sgd"``,
+    ``"adam"``) or an ``Optimizer``, and ``optimizer_params`` its keyword
+    arguments, an ``lr_scheduler`` among them.  ``kvstore`` is accepted
+    for MXNet's signature; one device uses none."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device"):
@@ -96,7 +100,7 @@ class Trainer:
     def _update(self):
         """One batched updater call over every parameter that takes a
         gradient (``mxnet_tpu/gluon/trainer.py:239``)."""
-        updates = [(i, param.grad(), param.data())
+        updates = [(i, param.grad_tensor(), param.tensor())
                    for i, param in enumerate(self._params)
                    if param.grad_req != "null"]
         if updates:

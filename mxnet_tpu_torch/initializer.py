@@ -20,12 +20,14 @@ from __future__ import annotations
 
 import json
 import math
+import re
 
 import numpy as np
 import torch
 
 __all__ = ["InitDesc", "Initializer", "register", "alias", "create", "Zero",
-           "One", "Constant", "Uniform", "Normal", "Xavier", "MSRAPrelu"]
+           "One", "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "Load", "Mixed"]
 
 _REGISTRY = {}
 
@@ -227,3 +229,105 @@ class MSRAPrelu(Xavier):
     def __init__(self, factor_type="avg", slope=0.25):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """A scaled orthogonal matrix of the weight's first axis by the rest
+    (``mxnet_tpu/initializer.py:217``): the SVD factor of a uniform
+    (``rand_type="uniform"``) or gaussian draw, times ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, t, generator):
+        nout = t.shape[0]
+        nin = math.prod(t.shape[1:])
+        tmp = torch.empty((nout, nin), dtype=torch.float64, device=t.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=generator)
+        else:
+            tmp.normal_(0.0, 1.0, generator=generator)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        t.copy_((self.scale * q).reshape(t.shape))
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel (``mxnet_tpu/initializer.py:300``)."""
+
+    def _init_weight(self, name, t, generator):
+        self._init_bilinear(name, t, generator)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (the second of an LSTM's
+    i, f, c, o) at ``forget_bias`` (``mxnet_tpu/initializer.py:306``)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, t, generator):
+        t.zero_()
+        num_hidden = t.shape[0] // 4
+        t[num_hidden:2 * num_hidden] = self.forget_bias
+
+
+class Load:
+    """Values from ``param`` (``{name: array}``; ``arg:``/``aux:`` names
+    taken), else ``default_init`` (``mxnet_tpu/initializer.py:321``)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {}
+        for name, arr in param.items():
+            if name.startswith(("arg:", "aux:")):
+                name = name[4:]
+            self.param[name] = arr
+        self.default_init = default_init
+        self.verbose = verbose
+
+    @torch.no_grad()
+    def __call__(self, name, arr, generator=None):
+        t = _tensor(arr)
+        if name in self.param:
+            src = self.param[name]
+            src = getattr(src, "_data", src)
+            if not isinstance(src, torch.Tensor):
+                src = torch.as_tensor(np.asarray(src))
+            if tuple(t.shape) != tuple(src.shape):
+                raise ValueError(f"Parameter {name} cannot be initialized "
+                                 f"from loading. Needs shape "
+                                 f"{tuple(t.shape)} but loaded "
+                                 f"{tuple(src.shape)}")
+            t.copy_(src)
+        elif self.default_init is None:
+            raise ValueError(f"Cannot Initialize parameter {name}. Not "
+                             f"found in loaded param and no default "
+                             f"initializer")
+        else:
+            create(self.default_init)(name, t, generator)
+
+
+class Mixed:
+    """The initializer of the first of ``patterns`` (regular expressions)
+    that the name matches (``mxnet_tpu/initializer.py:336``)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise AssertionError("one initializer per pattern")
+        self.map = [(re.compile(p), create(i))
+                    for p, i in zip(patterns, initializers)]
+
+    def __call__(self, name, arr, generator=None):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr, generator)
+                return
+        raise ValueError(f"Parameter name {name} did not match any "
+                         f"pattern; add a \".*\" pattern for a default "
+                         f"initializer")

@@ -1,6 +1,8 @@
 """BERT in PyTorch (counterpart of ``mxnet_tpu/models/bert.py``).
 
-Same layers, same post-LN encoder, same two attention routes:
+Same layers, same post-LN encoder, the same prefixes (``bertmodel0_``,
+``enc_layer0_attn_qkv_``...; ``mxnet_tpu/models/bert.py``) and so the
+JAX model's ``collect_params()`` names, same two attention routes:
 
 - unmasked, dropout-free attention goes through
   ``ops.contrib.flash_attention`` (the hand-written CUDA kernel on a GPU);
@@ -34,18 +36,20 @@ __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
 class MultiHeadAttention(HybridBlock):
     """Self-attention with a fused QKV projection, (B, H, T, D) heads."""
 
-    def __init__(self, units, num_heads, dropout=0.0, device=None):
-        super().__init__()
+    def __init__(self, units, num_heads, dropout=0.0, device=None, *,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if units % num_heads:
             raise ValueError(f"units={units} not divisible by "
                              f"num_heads={num_heads}")
         self._units = units
         self._num_heads = num_heads
-        self.qkv = nn.Dense(units * 3, flatten=False, in_units=units,
-                            device=device)
-        self.proj = nn.Dense(units, flatten=False, in_units=units,
-                             device=device)
-        self.dropout = nn.Dropout(dropout)
+        with self.name_scope():
+            self.qkv = nn.Dense(units * 3, flatten=False, in_units=units,
+                                prefix="qkv_", device=device)
+            self.proj = nn.Dense(units, flatten=False, in_units=units,
+                                 prefix="out_", device=device)
+            self.dropout = nn.Dropout(dropout)
 
     def _split_heads(self, x):
         # (B, T, C) -> (B, H, T, C/H), contiguous as the kernel takes it
@@ -80,15 +84,17 @@ class MultiHeadAttention(HybridBlock):
 class PositionwiseFFN(HybridBlock):
     """Dense -> GELU -> Dense with residual + LayerNorm."""
 
-    def __init__(self, units, hidden_size, dropout=0.0, device=None):
-        super().__init__()
-        self.ffn_1 = nn.Dense(hidden_size, flatten=False, in_units=units,
-                              device=device)
-        self.activation = nn.GELU()
-        self.ffn_2 = nn.Dense(units, flatten=False, in_units=hidden_size,
-                              device=device)
-        self.dropout = nn.Dropout(dropout)
-        self.layer_norm = nn.LayerNorm(in_channels=units, device=device)
+    def __init__(self, units, hidden_size, dropout=0.0, device=None, *,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.ffn_1 = nn.Dense(hidden_size, flatten=False, in_units=units,
+                                  prefix="ffn1_", device=device)
+            self.activation = nn.GELU()
+            self.ffn_2 = nn.Dense(units, flatten=False, in_units=hidden_size,
+                                  prefix="ffn2_", device=device)
+            self.dropout = nn.Dropout(dropout)
+            self.layer_norm = nn.LayerNorm(in_channels=units, device=device)
 
     def forward(self, x):
         out = self.dropout(self.ffn_2(self.activation(self.ffn_1(x))))
@@ -99,14 +105,15 @@ class TransformerEncoderCell(HybridBlock):
     """Post-LN transformer layer (BERT convention)."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 device=None):
-        super().__init__()
-        self.attention = MultiHeadAttention(units, num_heads, dropout,
-                                            device=device)
-        self.attn_dropout = nn.Dropout(dropout)
-        self.attn_norm = nn.LayerNorm(in_channels=units, device=device)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout,
-                                   device=device)
+                 device=None, *, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.attention = MultiHeadAttention(units, num_heads, dropout,
+                                                device=device, prefix="attn_")
+            self.attn_dropout = nn.Dropout(dropout)
+            self.attn_norm = nn.LayerNorm(in_channels=units, device=device)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       device=device, prefix="ffn_")
 
     def forward(self, x, mask=None):
         out = self.attention(x, mask)
@@ -116,12 +123,15 @@ class TransformerEncoderCell(HybridBlock):
 
 class BERTEncoder(HybridBlock):
     def __init__(self, num_layers=12, units=768, hidden_size=3072,
-                 num_heads=12, dropout=0.1, device=None):
-        super().__init__()
-        self.layers = nn.HybridSequential()
-        for _ in range(num_layers):
-            self.layers.add(TransformerEncoderCell(
-                units, hidden_size, num_heads, dropout, device=device))
+                 num_heads=12, dropout=0.1, device=None, *, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.layers = nn.HybridSequential(prefix="layers_")
+            for i in range(num_layers):
+                self.layers.add(TransformerEncoderCell(
+                    units, hidden_size, num_heads, dropout, device=device,
+                    prefix=f"layer{i}_"))
 
     def forward(self, x, mask=None):
         for cell in self.layers:
@@ -141,34 +151,48 @@ class BERTModel(HybridBlock):
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
                  token_type_vocab_size=2, dropout=0.1, use_pooler=True,
-                 use_decoder=True, use_classifier=True, device=None):
-        super().__init__()
+                 use_decoder=True, use_classifier=True, device=None, *,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         device = as_device(device)
         self._units = units
         self.use_pooler = use_pooler
         self.use_decoder = use_decoder
         self.use_classifier = use_classifier
-        self.word_embed = nn.Embedding(vocab_size, units, device=device)
-        self.token_type_embed = nn.Embedding(token_type_vocab_size, units,
-                                             device=device)
-        self.position_embed = nn.Embedding(max_length, units, device=device)
-        self.embed_norm = nn.LayerNorm(in_channels=units, device=device)
-        self.embed_dropout = nn.Dropout(dropout)
-        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
-                                   dropout, device=device)
-        if use_pooler:
-            self.pooler = nn.Dense(units, activation="tanh", flatten=False,
-                                   in_units=units, device=device)
-        if use_decoder:
-            self.decoder_transform = nn.Dense(units, flatten=False,
-                                              in_units=units, device=device)
-            self.decoder_act = nn.GELU()
-            self.decoder_norm = nn.LayerNorm(in_channels=units, device=device)
-            self.decoder_bias = torch.nn.Parameter(
-                torch.empty(vocab_size, device=device))
-        if use_classifier:
-            self.nsp_classifier = nn.Dense(2, flatten=False, in_units=units,
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, units,
+                                           prefix="word_embed_",
                                            device=device)
+            self.token_type_embed = nn.Embedding(
+                token_type_vocab_size, units, prefix="type_embed_",
+                device=device)
+            self.position_embed = nn.Embedding(max_length, units,
+                                               prefix="pos_embed_",
+                                               device=device)
+            self.embed_norm = nn.LayerNorm(in_channels=units, device=device)
+            self.embed_dropout = nn.Dropout(dropout)
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout, device=device,
+                                       prefix="enc_")
+            if use_pooler:
+                self.pooler = nn.Dense(units, activation="tanh",
+                                       flatten=False, in_units=units,
+                                       prefix="pooler_", device=device)
+            if use_decoder:
+                self.decoder_transform = nn.Dense(units, flatten=False,
+                                                  in_units=units,
+                                                  prefix="dec_t_",
+                                                  device=device)
+                self.decoder_act = nn.GELU()
+                self.decoder_norm = nn.LayerNorm(in_channels=units,
+                                                 device=device)
+                self.decoder_bias = self._new_param(
+                    "decoder_bias", (vocab_size,), torch.float32, device,
+                    init="zeros")
+            if use_classifier:
+                self.nsp_classifier = nn.Dense(2, flatten=False,
+                                               in_units=units,
+                                               prefix="nsp_", device=device)
 
     def forward(self, inputs, token_types=None, valid_mask=None,
                 masked_positions=None):
@@ -199,14 +223,17 @@ class BERTModel(HybridBlock):
 class BERTClassifier(HybridBlock):
     """Sentence-pair classification head over the pooled output."""
 
-    def __init__(self, bert, num_classes=2, dropout=0.1):
-        super().__init__()
+    def __init__(self, bert, num_classes=2, dropout=0.1, *, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         self.bert = bert
         device = bert.word_embed.weight.device
-        self.classifier = nn.HybridSequential()
-        self.classifier.add(nn.Dropout(dropout))
-        self.classifier.add(nn.Dense(num_classes, flatten=False,
-                                     in_units=bert._units, device=device))
+        with self.name_scope():
+            self.classifier = nn.HybridSequential(prefix="cls_")
+            self.classifier.add(nn.Dropout(dropout))
+            self.classifier.add(nn.Dense(num_classes, flatten=False,
+                                         in_units=bert._units,
+                                         device=device))
 
     def forward(self, inputs, token_types=None, valid_mask=None):
         _, pooled = self.bert(inputs, token_types, valid_mask)[:2]

@@ -160,7 +160,7 @@ def leaky_relu(x, *args, act_type="leaky", slope=0.25, lower_bound=0.125,
         return F.gelu(x)
     if act_type == "prelu":
         gamma = args[0]
-        if gamma.dim() == 1:
+        if gamma.dim() == 1 and gamma.numel() > 1:
             gamma = gamma.reshape((1, -1) + (1,) * (x.dim() - 2))
         return torch.where(x > 0, x, gamma * x)
     if act_type == "rrelu":

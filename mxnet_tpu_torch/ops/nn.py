@@ -148,7 +148,8 @@ def _window_sum(x, kernel, stride, pads):
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             pooling_convention="valid", stride=None, pad=None,
             count_include_pad=True, layout=None):
-    """Max/avg/sum pooling over H and W of NCHW or NHWC data.
+    """Max/avg/sum pooling over H and W of NCHW or NHWC data; global
+    pooling over the spatial axes of 1-D, 2-D and 3-D data.
 
     Padding is filled with the reduction's identity (-inf for max, 0 for
     the sums); ``avg`` divides by the window size when
@@ -156,19 +157,20 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
     reference does) and by the count of real elements otherwise.  NHWC
     pools a ``channels_last`` view, whose format torch's pooling and
     padding keep, and returns NHWC."""
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(f"unknown pool_type {pool_type!r}")
+    if parse_bool(global_pool) and data.dim() in (3, 4, 5):
+        ax = _channel_axis(layout, data.dim())
+        spatial = tuple(i for i in range(1, data.dim()) if i != ax)
+        reduce = {"max": torch.amax, "avg": torch.mean, "sum": torch.sum}
+        return reduce[pool_type](data, dim=spatial, keepdim=True)
     if data.dim() != 4:
         raise NotImplementedError(
-            "the port pools 2-D (NCHW/NHWC) data only; 1-D and 3-D pooling "
-            "wait for ROADMAP.md queue 1 item 6")
+            "the port pools 2-D (NCHW/NHWC) data only; windowed 1-D and "
+            "3-D pooling wait for ROADMAP.md queue 1 item 6")
     ax = _channel_axis(layout, 4)
     if ax not in (1, 3):
         raise ValueError(f"layout {layout!r}: pooling takes NCHW or NHWC")
-    if pool_type not in ("max", "avg", "sum"):
-        raise ValueError(f"unknown pool_type {pool_type!r}")
-    spatial = (2, 3) if ax == 1 else (1, 2)
-    if global_pool:
-        reduce = {"max": torch.amax, "avg": torch.mean, "sum": torch.sum}
-        return reduce[pool_type](data, dim=spatial, keepdim=True)
     x = _to_channel_first(data, ax)
     out = _pool2d(x, _tuple(kernel, 2, 1), _tuple(stride, 2, 1),
                   _tuple(pad, 2, 0), pool_type, pooling_convention,
@@ -382,6 +384,19 @@ def _layer_norm_op(data, gamma, beta, axis=-1, eps=1e-5,
     x = data.float()
     return out, x.mean(dim=ax), x.var(dim=ax, unbiased=False)
 
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """``InstanceNorm`` (``mxnet_tpu/ops/nn.py:387``): each sample's
+    channels normalised over their spatial axes (biased variance), then
+    ``gamma``/``beta`` on axis 1."""
+    eps = parse_float(eps, 1e-3)
+    var, mean = torch.var_mean(data, dim=tuple(range(2, data.dim())),
+                               keepdim=True, correction=0)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
 
 def _temper(data, temperature):
     return data if temperature is None else data / parse_float(temperature)

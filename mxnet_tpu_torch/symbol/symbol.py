@@ -799,6 +799,7 @@ LAYER_INPUTS = {
     "BatchNorm": lambda a: ["data", "gamma", "beta", "moving_mean",
                             "moving_var"],
     "LayerNorm": lambda a: ["data", "gamma", "beta"],
+    "InstanceNorm": lambda a: ["data", "gamma", "beta"],
     "Embedding": lambda a: ["data", "weight"],
     "LeakyReLU": lambda a: (["data", "gamma"] if a.get("act_type") == "prelu"
                             else ["data"]),
@@ -863,6 +864,9 @@ def _infer_layer_param_shapes(node, out_specs, var_spec):
         c = int(dshape[parse_int(_literal(a.get("axis", -1)), -1)])
         fill("gamma", (c,))
         fill("beta", (c,))
+    elif name == "InstanceNorm":
+        fill("gamma", (int(dshape[1]),))
+        fill("beta", (int(dshape[1]),))
     elif name == "Embedding":
         fill("weight", (parse_int(_literal(a.get("input_dim"))),
                         parse_int(_literal(a.get("output_dim")))))

@@ -14,6 +14,10 @@ CPU from the card (``tests/test_torch_nd_gpu.py``, ``chip_smoke.py``).
 
 Tolerances (:func:`tolerance`): fp32 rtol 1e-5 and atol 1e-6; fp16 and
 bf16 1e-2 relative; exact cases exactly.
+
+:func:`structural_params` gives a block's Gluon parameters under their
+structural names, the names ``save_parameters`` writes, for comparing
+training runs with the JAX package's ``_collect_params_with_prefix``.
 """
 from __future__ import annotations
 
@@ -23,7 +27,18 @@ from typing import NamedTuple
 import numpy as np
 
 __all__ = ["Case", "OP_CASES", "RANDOM_CASES", "UPDATE_OPS", "make_inputs",
-           "run_case", "compare", "tolerance", "case_id"]
+           "run_case", "compare", "tolerance", "case_id",
+           "structural_params"]
+
+
+def structural_params(block):
+    """``{structural name: Parameter}`` of a port block: each tensor of
+    ``_collect_params_with_prefix()`` with its ``collect_params()``
+    parameter."""
+    by_tensor = {id(p.tensor()): p
+                 for p in block.collect_params().values()}
+    return {k: by_tensor[id(t)]
+            for k, t in block._collect_params_with_prefix().items()}
 
 
 class Case(NamedTuple):
@@ -537,6 +552,11 @@ OP_CASES.append(Case(
                 ("I", (3,), 1, 4)),
     {"use_data_lengths": True, "use_label_lengths": True,
      "blank_label": "last"}))
+# slice 12: InstanceNorm, one case in each half
+OP_CASES.insert(len(OP_CASES) // 2, Case(
+    "InstanceNorm", (("n", (2, 3, 4, 5)), ("p", (3,)), ("n", (3,)))))
+OP_CASES.append(Case("InstanceNorm", (("n", (2, 4, 6)), ("p", (4,)),
+                                      ("n", (4,))), {"eps": 1e-5}))
 UPDATE_OPS += [
     Case("nag_mom_update", (("n", S), ("n", S), ("n", S)),
          {"lr": 0.1, "momentum": 0.9, "wd": 0.01}, grad=False),

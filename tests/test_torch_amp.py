@@ -61,6 +61,7 @@ from mxnet_tpu_torch.convert import bert_state_dict_from_gluon
 from mxnet_tpu_torch.gluon.model_zoo import get_model
 from mxnet_tpu_torch.models import bert as tbert
 from mxnet_tpu_torch.ops import registry
+from mxnet_tpu_torch.test_utils import structural_params
 
 QUARTER = 0.25
 
@@ -659,9 +660,10 @@ def _bert_train_port(bert_pair, lr=1e-3, steps=3):
     port = _bert_port(bert_pair)
     tok, seg, pos, mlm_y, nsp_y = (torch.from_numpy(a)
                                    for a in _bert_batch())
-    params = port.collect_params()
+    params = structural_params(port)
     sce = gluon.loss.SoftmaxCrossEntropyLoss()
-    trainer = gluon.Trainer(params, "adam", {"learning_rate": lr})
+    trainer = gluon.Trainer(port.collect_params(), "adam",
+                            {"learning_rate": lr})
     pamp.init()
     pamp.init_trainer(trainer)
     losses, grads = [], []
@@ -730,11 +732,11 @@ def _resnet_train(pkg, path, x, y, amp_on, steps=3):
     else:
         net = get_model("resnet18_v1", classes=10, device="cpu")
         net.load_parameters(path)
-        params = net.collect_params()
+        params = structural_params(net)
         data, label = torch.from_numpy(x), torch.from_numpy(y)
         sce, record, back = gluon.loss.SoftmaxCrossEntropyLoss(), \
             ag.record, ag.backward
-        trainer = gluon.Trainer(params, "sgd", dict(
+        trainer = gluon.Trainer(net.collect_params(), "sgd", dict(
             learning_rate=0.01, momentum=0.9, wd=1e-4))
         amp = pamp
     if amp_on:
@@ -1095,7 +1097,7 @@ def test_convert_hybrid_block_matches_jax(tmp_path):
     pamp.convert_hybrid_block(pnet)
     jd = {k: str(p.data().dtype)
           for k, p in jnet._collect_params_with_prefix().items()}
-    pd = {k: _dt(p.data()) for k, p in pnet.collect_params().items()}
+    pd = {k: _dt(p.tensor()) for k, p in structural_params(pnet).items()}
     assert jnet.output.weight.dtype == "float32"       # the string above
     assert {k for k in pd if pd[k] != jd[k]} == {"output.weight"}
     assert pd["output.weight"] == "bfloat16" and \

@@ -170,9 +170,9 @@ def test_fp16_cast_and_multi_precision_sgd_against_cpu(cuda):
             torch.cuda.synchronize()
         # the fp32 value of each weight that fp16 training keeps a master of
         values = {i: (s[0] if isinstance(s, tuple) else
-                      trainer._params[i].data()).float().cpu()
+                      trainer._params[i].tensor()).float().cpu()
                   for i, s in trainer._updater.states.items()
-                  if trainer._params[i].data().dim() > 1}
+                  if trainer._params[i].tensor().dim() > 1}
         results.append((values, bs.bn_stats.launches))
     (mc, nc), (mg, ng), (mr, _), (ms, _), (m32, _) = results
     assert nc == 0 and ng == 2 * 20

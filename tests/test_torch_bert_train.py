@@ -49,6 +49,7 @@ from mxnet_tpu_torch import gluon
 from mxnet_tpu_torch.convert import bert_state_dict_from_gluon
 from mxnet_tpu_torch.models import bert as tbert
 from mxnet_tpu_torch.ops import flash_attention as fa
+from mxnet_tpu_torch.test_utils import structural_params
 
 V, T, B, M = 64, 128, 4, 4
 LR, STEPS, TOL = 1e-3, 3, 1e-4
@@ -121,9 +122,10 @@ def _port_model(jax_net):
 def _train_port(port, batch, steps, vocab=V):
     tok, seg, mask, pos, mlm_y, nsp_y = (None if a is None else
                                          torch.from_numpy(a) for a in batch)
-    params = port.collect_params()
+    params = structural_params(port)
     sce = gluon.loss.SoftmaxCrossEntropyLoss()
-    trainer = gluon.Trainer(params, "adam", {"learning_rate": LR})
+    trainer = gluon.Trainer(port.collect_params(), "adam",
+                            {"learning_rate": LR})
     losses, grads = [], []
     for _ in range(steps):
         with ag.record():
@@ -131,11 +133,11 @@ def _train_port(port, batch, steps, vocab=V):
             loss = sce(mlm.reshape(-1, vocab), mlm_y.reshape(-1)).mean() + \
                 sce(nsp, nsp_y).mean()
         ag.backward(loss)
-        grads.append({k: p.grad().numpy().copy() for k, p in params.items()
-                      if p.grad_req != "null"})
+        grads.append({k: p.grad_tensor().numpy().copy()
+                      for k, p in params.items() if p.grad_req != "null"})
         trainer.step(tok.shape[0])
         losses.append(float(loss.detach()))
-    return losses, grads, {k: p.data().detach().numpy().copy()
+    return losses, grads, {k: p.tensor().detach().numpy().copy()
                            for k, p in params.items()}
 
 
@@ -218,9 +220,10 @@ def _train_port_nd(port, batch, steps):
     mask = None if mask is None else mx_port.nd.array(mask, ctx=ctx)
     mlm_y, nsp_y = (mx_port.nd.array(a, ctx=ctx) for a in (mlm_y, nsp_y))
     port.initialize(init=_keep, ctx=ctx)
-    params = port.collect_params()
+    params = structural_params(port)
     sce = gluon.loss.SoftmaxCrossEntropyLoss()
-    trainer = gluon.Trainer(params, "adam", {"learning_rate": LR})
+    trainer = gluon.Trainer(port.collect_params(), "adam",
+                            {"learning_rate": LR})
     losses, grads = [], []
     for _ in range(steps):
         with mx_port.autograd.record():
@@ -229,12 +232,12 @@ def _train_port_nd(port, batch, steps):
                 sce(nsp, nsp_y).mean()
         assert isinstance(loss, mx_port.nd.NDArray)
         loss.backward()
-        grads.append({k: p.grad().numpy().copy() for k, p in params.items()
-                      if p.grad_req != "null"})
+        grads.append({k: p.grad_tensor().numpy().copy()
+                      for k, p in params.items() if p.grad_req != "null"})
         trainer.step(tok.shape[0])
         loss.wait_to_read()
         losses.append(float(loss.asscalar()))
-    return losses, grads, {k: p.data().detach().numpy().copy()
+    return losses, grads, {k: p.tensor().detach().numpy().copy()
                            for k, p in params.items()}
 
 

@@ -218,14 +218,18 @@ def _args(fn, skip=()):
 @pytest.mark.parametrize("name", LAYERS)
 def test_layer_signature_matches_jax(name):
     """The port's positional-or-keyword arguments are the JAX layer's, in
-    order, with equal defaults (``prefix``/``params`` wait for ROADMAP.md
-    queue 1 item 12); the port's own (``dtype`` where the reference has
+    order, with equal defaults, ``prefix``/``params`` aside (every layer
+    takes them, keyword only where the JAX layer takes them through
+    ``**kwargs``); the port's own (``dtype`` where the reference has
     none, ``device``) are keyword only."""
     port, ref = getattr(gluon.nn, name), getattr(jgluon.nn, name)
-    assert _args(port.__init__) == _args(ref.__init__, ("prefix", "params"))
+    skip = ("prefix", "params")
+    assert _args(port.__init__, skip) == _args(ref.__init__, skip)
     extra = [n for n, p in inspect.signature(port.__init__)
              .parameters.items() if p.kind is p.KEYWORD_ONLY]
-    assert set(extra) <= {"dtype", "device"}
+    assert {"prefix", "params"} <= set(
+        inspect.signature(port.__init__).parameters)
+    assert set(extra) <= {"dtype", "device", "prefix", "params"}
 
 
 def test_positional_and_dtype_string_construction_matches_jax():
@@ -279,7 +283,7 @@ def test_per_parameter_initializers_match_jax():
     for jl, pl in zip(layers(jgluon.nn, jmx.init),
                       layers(gluon.nn, mx.init)):
         jl.initialize(jmx.init.Constant(7.0))
-        pl.initialize(mx.init.Constant(7.0))
+        pl.initialize(mx.init.Constant(7.0), ctx=mx.cpu())
         for k, v in jl._collect_params_with_prefix().items():
             np.testing.assert_array_equal(
                 getattr(pl, k).detach().numpy(), v.data().asnumpy(),

@@ -34,6 +34,7 @@ from mxnet_tpu_torch import gluon
 from mxnet_tpu_torch.gluon.model_zoo import get_model
 from mxnet_tpu_torch.ops import bn_stats as bs
 from mxnet_tpu_torch.ops import nn as ops
+from mxnet_tpu_torch.test_utils import structural_params
 
 RTOL, ATOL = 2e-5, 2e-5
 
@@ -285,7 +286,7 @@ def _train_port(name, path, x, y):
     net.load_parameters(path)
     trainer = gluon.Trainer(net.collect_params(), "sgd", dict(OPT))
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
-    params = net.collect_params()
+    params = structural_params(net)
     losses, grads = [], None
     copies = bs.bn_stats.copies
     for step in range(STEPS):
@@ -294,11 +295,11 @@ def _train_port(name, path, x, y):
         ag.backward(loss)
         losses.append(loss.detach().numpy())
         if step == 0:
-            grads = {k: p.grad().clone().numpy() for k, p in params.items()
-                     if p.grad_req != "null"}
+            grads = {k: p.grad_tensor().clone().numpy()
+                     for k, p in params.items() if p.grad_req != "null"}
         trainer.step(len(x))
     assert bs.bn_stats.copies == copies
-    return losses, grads, {k: p.data().detach().numpy()
+    return losses, grads, {k: p.tensor().detach().numpy()
                            for k, p in params.items()}
 
 

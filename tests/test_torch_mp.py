@@ -248,15 +248,15 @@ def test_block_cast_matches_jax(tmp_path):
 
 
 def test_parameter_cast_keeps_the_tensor_and_casts_the_grad():
-    net = gluon.nn.Dense(3, in_units=4, device="cpu")
+    net = gluon.nn.Dense(3, in_units=4, device="cpu", prefix="fc_")
     net.initialize()
-    param = net.collect_params()["weight"]
-    t = param.data()
+    param = net.collect_params()["fc_weight"]
+    t = param.tensor()
     param.grad()
     param.cast("float16")
-    assert param.data() is t and t.dtype == torch.float16
+    assert param.tensor() is t and t.dtype == torch.float16
     assert t.grad.dtype == torch.float16
-    assert net.collect_params()["weight"] is param
+    assert net.collect_params()["fc_weight"] is param
     param.cast(torch.float32)
     assert t.dtype == torch.float32 and t.grad.dtype == torch.float32
 
@@ -334,7 +334,7 @@ def test_trainer_states_match_jax_values():
     for gs in grads:
         for jp, pp, g in zip(jps, pps, gs):
             jp.grad()[:] = jmx.nd.array(g)
-            pp.grad().copy_(torch.from_numpy(g))
+            pp.grad_tensor().copy_(torch.from_numpy(g))
         jtr.step(1)
         ptr.step(1)
     jstates = jtr._updaters[0].states

@@ -354,7 +354,7 @@ def test_trainer_matches_jax(name, kw):
         ag.backward(tl)
         tr.step(6)
     jp = [p.data().asnumpy() for p in jnet.collect_params().values()]
-    tp = [p.data().detach().numpy() for p in net.collect_params().values()]
+    tp = [p.tensor().detach().numpy() for p in net.collect_params().values()]
     assert len(jp) == len(tp)
     for a, b in zip(tp, jp):
         _close(a, b, 1e-5)

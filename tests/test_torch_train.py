@@ -18,6 +18,7 @@ from mxnet_tpu import optimizer as jopt
 from mxnet_tpu.gluon.model_zoo import vision as jvision
 from mxnet_tpu.ops import optimizer_ops as jops
 
+import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd as ag
 from mxnet_tpu_torch import gluon, lr_scheduler, optimizer, telemetry
 from mxnet_tpu_torch.gluon.model_zoo import get_model
@@ -222,6 +223,12 @@ def _param(name, shape, init):
     return p
 
 
+def _value(p):
+    """A parameter's value as numpy (its tensor, through the port's tensor
+    accessor)."""
+    return p.tensor().detach().numpy()
+
+
 def test_trainer_step_math_and_lr_mult():
     """``test_gluon_trainer.py``'s momentum trajectory on grad == 1, then
     ``lr_mult`` folded into the momentum buffer."""
@@ -233,15 +240,13 @@ def test_trainer_step_math_and_lr_mult():
             y = x.data() + 1
         ag.backward(y)
         trainer.step(1)
-        np.testing.assert_allclose(x.data().detach().numpy(),
-                                   np.full(10, expect))
+        np.testing.assert_allclose(_value(x), np.full(10, expect))
     x.lr_mult = 0.5
     with ag.record():
         y = x.data() + 1
     ag.backward(y)
     trainer.step(1)
-    np.testing.assert_allclose(x.data().detach().numpy(), np.full(10, -3.75),
-                               rtol=1e-6)
+    np.testing.assert_allclose(_value(x), np.full(10, -3.75), rtol=1e-6)
 
 
 def test_trainer_steps_without_gradients_and_learning_rate():
@@ -253,15 +258,15 @@ def test_trainer_steps_without_gradients_and_learning_rate():
         y = x.data().sum()
     ag.backward(y)
     trainer.step(1)
-    w1 = x.data().detach().clone()
+    w1 = x.tensor().detach().clone()
     x.zero_grad()
     trainer.step(1)
-    torch.testing.assert_close(x.data().detach(), w1)
+    torch.testing.assert_close(x.tensor().detach(), w1)
     trainer.set_learning_rate(0.05)
     assert trainer.learning_rate == 0.05
     fresh = _param("f", (2,), "ones")
     gluon.Trainer([fresh], "sgd", {"learning_rate": 0.5}).step(4)
-    torch.testing.assert_close(fresh.data().detach(), torch.ones(2))
+    torch.testing.assert_close(fresh.tensor().detach(), torch.ones(2))
 
 
 def test_trainer_multiple_params_distinct_states():
@@ -272,8 +277,8 @@ def test_trainer_multiple_params_distinct_states():
         ya, yb = a.data() + 1, (b.data() * 2).sum()
     ag.backward([ya, yb])
     trainer.step(1)
-    np.testing.assert_allclose(a.data().detach().numpy(), [-1, -1])
-    np.testing.assert_allclose(b.data().detach().numpy(), [-2, -2, -2])
+    np.testing.assert_allclose(_value(a), [-1, -1])
+    np.testing.assert_allclose(_value(b), [-2, -2, -2])
 
 
 def test_trainer_rejects_and_records():
@@ -297,22 +302,28 @@ def test_trainer_rejects_and_records():
 
 
 def test_collect_params_names_reqs_and_persistent_settings():
-    """Structural names, ``select``, ``grad_req='null'`` running statistics
-    that the trainer skips, and settings that last across calls."""
-    net = get_model("resnet18_v1", classes=10, device="cpu")
-    net.initialize()
+    """Prefixed names (the JAX package's), one per structural name,
+    ``select``, ``grad_req='null'`` running statistics that the trainer
+    skips, and settings that last across calls."""
+    with mx.name.NameManager():
+        net = get_model("resnet18_v1", classes=10, device="cpu")
+    with jmx.name.NameManager():
+        jnet = jvision.get_model("resnet18_v1", classes=10)
+    net.initialize(ctx=mx.cpu())
     net(torch.zeros(1, 3, 32, 32))
     params = net.collect_params()
-    assert set(params) == set(net._collect_params_with_prefix())
-    assert params["features.1.running_var"].grad_req == "null"
-    assert params["features.1.gamma"].grad_req == "write"
+    assert list(params) == list(jnet.collect_params())
+    assert len(params) == len(net._collect_params_with_prefix())
+    assert params["resnetv10_batchnorm0_running_var"].grad_req == "null"
+    assert params["resnetv10_batchnorm0_gamma"].grad_req == "write"
     bn = net.collect_params(".*running_mean")
     assert bn and all(k.endswith("running_mean") for k in bn)
-    params["output.weight"].lr_mult = 0.0
-    assert net.collect_params()["output.weight"].lr_mult == 0.0
-    assert net.collect_params()["output.weight"] is params["output.weight"]
+    out = "resnetv10_dense0_weight"
+    params[out].lr_mult = 0.0
+    assert net.collect_params()[out].lr_mult == 0.0
+    assert net.collect_params()[out] is params[out]
     with pytest.raises(RuntimeError, match="grad_req='null'"):
-        params["features.1.running_mean"].grad()
+        params["resnetv10_batchnorm0_running_mean"].grad()
     before = net.features[1].running_mean.clone()
     w_out = net.output.weight.detach().clone()
     trainer = gluon.Trainer(params, "sgd", {"learning_rate": 0.1,
@@ -328,11 +339,11 @@ def test_collect_params_names_reqs_and_persistent_settings():
 
 
 def test_grad_req_add_and_null_on_a_block():
-    dense = gluon.nn.Dense(2, in_units=3, device="cpu")
+    dense = gluon.nn.Dense(2, in_units=3, device="cpu", prefix="fc_")
     dense.initialize()
     params = dense.collect_params()
-    params["weight"].grad_req = "add"
-    params["bias"].grad_req = "null"
+    params["fc_weight"].grad_req = "add"
+    params["fc_bias"].grad_req = "null"
     x = torch.ones(4, 3)
     for _ in range(2):
         with ag.record():
@@ -340,7 +351,7 @@ def test_grad_req_add_and_null_on_a_block():
         ag.backward(y)
     torch.testing.assert_close(dense.weight.grad, torch.full((2, 3), 8.0))
     assert dense.bias.grad is None and not dense.bias.requires_grad
-    params["weight"].grad_req = "write"
+    params["fc_weight"].grad_req = "write"
     with ag.record():
         y = dense(x)
     ag.backward(y)
@@ -369,11 +380,12 @@ def _train_jax(name, path, x, y, perm):
     """STEPS steps of the JAX package on the batch in the order ``perm``:
     per-sample losses (in the original order), step-1 gradients, final
     parameters and running statistics."""
-    net = jvision.get_model(name, classes=10)
+    with jmx.name.NameManager():
+        net = jvision.get_model(name, classes=10)
     net.load_parameters(path)
     trainer = jgluon.Trainer(net.collect_params(), "sgd", dict(OPT))
     loss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
-    params = net._collect_params_with_prefix()
+    params = net.collect_params()
     losses, grads = [], None
     for step in range(STEPS):
         with jag.record():
@@ -388,7 +400,8 @@ def _train_jax(name, path, x, y, perm):
 
 
 def _train_port(name, path, x, y):
-    net = get_model(name, classes=10, device="cpu")
+    with mx.name.NameManager():
+        net = get_model(name, classes=10, device="cpu")
     net.load_parameters(path)
     trainer = gluon.Trainer(net.collect_params(), "sgd", dict(OPT))
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
@@ -400,11 +413,10 @@ def _train_port(name, path, x, y):
         ag.backward(loss)
         losses.append(loss.detach().numpy())
         if step == 0:
-            grads = {k: p.grad().clone().numpy() for k, p in params.items()
-                     if p.grad_req != "null"}
+            grads = {k: p.grad_tensor().clone().numpy()
+                     for k, p in params.items() if p.grad_req != "null"}
         trainer.step(len(x))
-    return losses, grads, {k: p.data().detach().numpy()
-                           for k, p in params.items()}
+    return losses, grads, {k: _value(p) for k, p in params.items()}
 
 
 def _rel(a, b):
@@ -565,7 +577,7 @@ def test_adam_trainer_matches_jax():
         jag.backward(jy)
         jt.step(2)
         with ag.record():
-            ty = [(p.data() * _t(a)).sum() for p, a in zip(tp, x)]
+            ty = [(p.tensor() * _t(a)).sum() for p, a in zip(tp, x)]
         ag.backward(ty)
         tt.step(2)
         lr = 0.1 * np.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)
@@ -575,7 +587,7 @@ def test_adam_trainer_matches_jax():
             v64[i] = 0.999 * v64[i] + 0.001 * g * g
             w64[i] = w64[i] - lr * m64[i] / (np.sqrt(v64[i]) + 1e-8)
     for a, b, c in zip(tp, jp, w64):
-        a = a.data().detach().numpy()
+        a = _value(a)
         np.testing.assert_allclose(a, c, rtol=0, atol=3e-7)
         np.testing.assert_allclose(a, b.data().asnumpy(), rtol=0, atol=1e-5)
 
@@ -642,8 +654,8 @@ def test_trainer_takes_an_lr_scheduler():
         ag.backward(ty)
         tt.step(1)
         assert tt.learning_rate == jt.learning_rate
-        np.testing.assert_allclose(x.data().detach().numpy(),
-                                   jx.data().asnumpy(), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(_value(x), jx.data().asnumpy(), rtol=0,
+                                   atol=ATOL)
     with pytest.raises(UserWarning, match="LRScheduler"):
         tt.set_learning_rate(0.1)
     with pytest.raises(UserWarning, match="LRScheduler"):
@@ -688,6 +700,7 @@ def test_dropped_block_is_freed_without_the_collector():
                          .astype("float32"))
     net(x)
     params = net.collect_params()
+    first = net.features[0]._reg_params["weight"].name
     trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-3})
     start = net.features[0].weight.detach().clone()
     gc.disable()
@@ -698,12 +711,12 @@ def test_dropped_block_is_freed_without_the_collector():
             ag.backward(loss)
             trainer.step(2)
         weight = net.features[0].weight
-        assert params["features.0.weight"].data() is weight
+        assert params[first].tensor() is weight
         assert trainer._updater.states         # Adam's states exist
         moved = weight.detach().clone()
         alive = [weakref.ref(t) for t in (weight, next(iter(
             trainer._updater.states.values()))[0])]
-        some = params["features.0.weight"]
+        some = params[first]
         del net, weight, trainer, params, loss
         assert [r() for r in alive] == [None, None]
     finally:
