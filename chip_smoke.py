@@ -77,8 +77,9 @@ Phases, in order; any failure exits non-zero:
    ``[profile]`` (as phases 18 and 22's) counts the ``bn_stats`` kernels
    of one step against its 53 calls (one launch a call; a step under the
    profiler's warm-up comes first, and where the trace holds another
-   count it logs which launches have no kernel record) and prints the
-   wrapper's (``_BatchStats``) host ms.
+   count it logs which launches have no kernel record; a trace that lost
+   records is taken again, up to 3 times) and prints the wrapper's
+   (``_BatchStats``) host ms.
 
 10. BERT pretraining parity: ``bert_base`` at full width (768 units, 12
    heads, vocab 30522) cut to 2 layers, seeded weights, masked LM + next
@@ -247,6 +248,34 @@ beside the backward's bound.  Phase 3 holds and times the forward at phase
    (one epoch), each read with ``mxnet_tpu`` as ``mxnet_tpu_torch`` (the
    files are not edited); each must finish with its loss falling.
 
+26. the data path: a corpus of 768 seeded JPEGs at 288x384 (quality 85,
+   labels ``i % 1000``, ``bench.py:517-529``'s recipe) in a ``.rec`` with
+   its ``.idx`` under a temporary directory. (a) which reader and decoder
+   ``ImageRecordIter`` uses (the native reader must be the one on the
+   card; the decoder is cv2 where ``g++ -ljpeg`` does not link, and the
+   line says why); (b) on the card: ``preprocess_processes=2`` gives the
+   thread path's batches bit for bit over an epoch after a reset
+   mid-epoch; ``DevicePrefetchIter``'s staged tensors equal the host
+   batches bit for bit; ``device_augment=True`` staged and augmented on
+   the card equals the host-augmented batch within rtol 1e-5, atol 1e-4
+   (a square 288x288 corpus, where the uint8 canvas and the shorter-edge
+   resize agree) with one cache entry; (c) ``train_imagenet.py:91-95``'s
+   iterator (shuffle, mirror, random crop, resize 256, ImageNet mean/std,
+   batch 32) feeding phase 9's ResNet-50 v1 and SGD four ways: serial
+   (``as_in_context`` per batch), through ``DevicePrefetchIter`` (depth
+   2), through 4 decode processes with ``device_augment`` and the
+   prologue on the card, and the stage-only rate (decode and copy, no
+   step); one warm and one timed epoch of 24 batches each, images/s
+   beside phase 9's synthetic step of this call, the ``io.*`` counters of
+   each timed epoch, a ``[profile]`` of 3 fed steps (device idle share),
+   ``os.cpu_count()`` and peak memory; 53 bn-stats launches every fed
+   forward; (d) the Gluon route: ``ImageRecordDataset`` with
+   ``Compose([RandomResizedCrop(224), RandomFlipLeftRight(), ToTensor(),
+   Normalize(...)])`` and ``DataLoader(batch_size=32, shuffle=True,
+   num_workers=4, pin_memory=True, last_batch="discard")`` feeding phase
+   24's Gluon ResNet-50 v1 for 10 steps: images/s, finite losses, 53
+   launches a forward.
+
 Phases 4, 6, 9, 11, 17, 18 and 22 print a ``[profile]`` breakdown of one
 micro-batch or step.  The last two lines are the kernels' JSON record and
 the device line.
@@ -287,6 +316,7 @@ TRAIN_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
 PARITY_BATCH, PARITY_STEPS = 8, 2
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 32, 3, 10
 BN_PER_FORWARD = 53                    # BatchNorm layers of ResNet-50 v1
+PROFILE_ATTEMPTS = 3                   # traces of a step that lost records
 VOCAB, MASKED = 30522, 20              # bench.py:340-378, pretrain.py
 PRETRAIN_LR = 1e-4
 PT_PARITY_BATCH, PT_PARITY_LAYERS, PT_PARITY_STEPS = 4, 2, 2
@@ -1560,18 +1590,15 @@ def _trace_gaps(prof):
                       key=lambda e: e["ts"])
     lost = [(i, e["name"]) for i, e in enumerate(launches)
             if e["args"].get("correlation") not in kernels]
-    return (f"{len(launches)} runtime launches, {len(kernels)} kernel "
-            f"records ({sum('bn_stats' in k for k in kernels.values())} "
-            f"bn_stats); launches with no kernel record: {lost[:12]}")
+    return len(lost), (
+        f"{len(launches)} runtime launches, {len(kernels)} kernel records "
+        f"({sum('bn_stats' in k for k in kernels.values())} bn_stats); "
+        f"launches with no kernel record: {lost[:12]}")
 
 
-def profile_train_step(step, step_ms, top=12):
-    """Device time by kernel over one training step (CUPTI through
-    torch.profiler) beside the timed steps' mean wall time.  A step under
-    the profiler's warm-up comes first: a trace started at the step lost
-    the records of its first ~10 kernels, which in the NHWC step hold its
-    first ``bn_stats`` launch."""
-    from torch.autograd import DeviceType
+def _profile_one_step(step):
+    """One step under the profiler, after a step under its warm-up:
+    (the profile, the step's bn-stats calls)."""
     from mxnet_tpu_torch.ops import bn_stats
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1589,11 +1616,37 @@ def profile_train_step(step, step_ms, top=12):
     calls = bn_stats.bn_stats.launches - calls
     check(calls == BN_PER_FORWARD, f"{calls} bn-stats calls in the profiled "
                                    f"step (want {BN_PER_FORWARD})")
-    # the schedule's "ProfilerStep#" range spans the step on the host and
-    # on the device: it is neither a kernel nor a host op of the step
-    events = [e for e in prof.key_averages()
-              if not e.key.startswith("ProfilerStep")]
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    return prof, calls
+
+
+def profile_train_step(step, step_ms, top=12):
+    """Device time by kernel over one training step (CUPTI through
+    torch.profiler) beside the timed steps' mean wall time.  A step under
+    the profiler's warm-up comes first: a trace started at the step lost
+    the records of its first ~10 kernels, which in the NHWC step hold its
+    first ``bn_stats`` launch.  Even so a trace has once lost the first 21
+    records of the recorded step: a trace in which a runtime launch has no
+    kernel record cannot count the step's kernels, so the step is
+    profiled again (at most ``PROFILE_ATTEMPTS`` times); a complete trace
+    must hold one ``bn_stats`` kernel a call."""
+    from torch.autograd import DeviceType
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof, calls = _profile_one_step(step)
+        # the schedule's "ProfilerStep#" range spans the step on the host
+        # and on the device: it is neither a kernel nor a host op of it
+        events = [e for e in prof.key_averages()
+                  if not e.key.startswith("ProfilerStep")]
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        bn_launches = sum(e.count for e in kernels if "bn_stats" in e.key)
+        if not kernels or bn_launches == calls:
+            break
+        lost, gaps = _trace_gaps(prof)
+        log(f"[profile] the trace holds {bn_launches} bn_stats kernel "
+            f"records for the step's {calls} calls: {gaps}")
+        if not lost:
+            break                   # a complete trace: its count stands
+        log(f"[profile] trace {attempt} of {PROFILE_ATTEMPTS} lost {lost} "
+            f"kernel records; profiling the step again")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
         log(f"[profile] train step: {step_ms:.3f} ms wall; device time not "
@@ -1601,7 +1654,6 @@ def profile_train_step(step, step_ms, top=12):
         return
     bn_ms = sum(e.self_device_time_total for e in kernels
                 if "bn_stats" in e.key) / 1e3
-    bn_launches = sum(e.count for e in kernels if "bn_stats" in e.key)
     log(f"[profile] train step batch {TRAIN_BATCH}: {step_ms:.3f} ms wall "
         f"(mean of {TIMED_STEPS}), device busy {busy_ms:.3f} ms, idle share "
         f"{1 - busy_ms / step_ms:.3f}, {len(kernels)} kernels, "
@@ -1609,9 +1661,6 @@ def profile_train_step(step, step_ms, top=12):
         f"{bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy), {bn_launches} "
         f"launches for the step's {calls} calls; "
         f"{_kernel_share(kernels, busy_ms)}")
-    if bn_launches != calls:
-        log(f"[profile] the trace holds {bn_launches} bn_stats kernel "
-            f"records for the step's {calls} calls: {_trace_gaps(prof)}")
     check(bn_launches == calls,
           f"{bn_launches} bn_stats kernels for {calls} calls in one training "
           f"step (want one launch a call)")
@@ -2113,13 +2162,15 @@ def phase_nd(fa, bs, card):
     calls."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import registry
-    from mxnet_tpu_torch.test_utils import (OP_CASES, RANDOM_CASES,
-                                            UPDATE_OPS, make_inputs,
-                                            run_case)
+    from mxnet_tpu_torch.test_utils import (IMAGE_CASES, IMAGE_RANDOM_CASES,
+                                            OP_CASES, RANDOM_CASES,
+                                            UPDATE_OPS,
+                                            image_random_outcome_ok,
+                                            make_inputs, run_case)
     gpu = mx.gpu(0)
     t0 = time.perf_counter()
     ran, compared, worst = set(), 0, (0.0, "")
-    for case in OP_CASES:
+    for case in OP_CASES + IMAGE_CASES:
         got, ggot, where = run_case(mx.nd, mx.autograd, case, gpu)
         want, gwant, _ = run_case(mx.nd, mx.autograd, case, mx.cpu())
         check(all(c == gpu for c in where),
@@ -2167,6 +2218,22 @@ def phase_nd(fa, bs, card):
         perm.asnumpy(), again.asnumpy()), "[nd] shuffle is no seeded "
         "permutation on the card")
     ran.add("_shuffle")
+    # the random image ops: outcomes they may give, the same seed the same
+    # stream (their degenerate ranges are IMAGE_CASES above)
+    img = np.random.RandomState(5).uniform(0, 255, (4, 5, 3)).astype(
+        "float32")
+    for name, attrs, kind in IMAGE_RANDOM_CASES:
+        def draws(seed):
+            mx.random.seed(seed)
+            return [getattr(mx.nd, name)(mx.nd.array(img, ctx=gpu),
+                                         **attrs) for _ in range(16)]
+        a, b = draws(9), draws(9)
+        check(all(x.context == gpu and image_random_outcome_ok(
+            kind, img, x.asnumpy()) for x in a) and all(
+            np.array_equal(x.asnumpy(), y.asnumpy()) for x, y in zip(a, b)),
+            f"[nd] {name}: an outcome it cannot give, or another stream "
+            f"from the same seed")
+        ran.add(name)
     torch.cuda.synchronize()
     not_run = sorted(set(registry.list_ops()) - ran)
     log(f"[nd] {len(ran)} of {len(registry.list_ops())} ops of the table "
@@ -2175,7 +2242,8 @@ def phase_nd(fa, bs, card):
         f"bf16 1e-2; integer, index and shape outputs exact), worst fp32 "
         f"{worst[0]:.3e} ({worst[1]}); {len(RANDOM_CASES)} samplers by "
         f"moments (n {n}, 5 standard errors) and seeded stream, shuffle as "
-        f"a seeded permutation; every result on the card; "
+        f"a seeded permutation; {len(IMAGE_RANDOM_CASES)} random image "
+        f"ops by outcome and stream; every result on the card; "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"[nd] not run: {not_run or 'none'}")
     check(not not_run, f"[nd] ops of the table not run: {not_run}")
@@ -3558,6 +3626,357 @@ def phase_gluon_examples(card):
             f"first quarter {first:.4f}, last quarter {last:.4f}; on {card}")
 
 
+# phase 26: the data path
+DP_IMAGES, DP_HW, DP_QUALITY = 768, (288, 384), 85
+DP_SQUARE = 64                         # (b)'s 288x288 corpus
+DP_PROCS, DP_LOADER_WORKERS, DP_GLUON_STEPS = 4, 4, 10
+DP_TIMEOUT = 120                       # every wait on a worker, seconds
+# train_imagenet.py:91-95's iterator (data_shape (3, 224, 224), batch 32)
+DP_ITER = dict(data_shape=IMAGE, batch_size=TRAIN_BATCH, shuffle=True,
+               rand_mirror=True, rand_crop=True, resize=256, mean_r=123.68,
+               mean_g=116.779, mean_b=103.939, std_r=58.393, std_g=57.12,
+               std_b=57.375)
+DP_PROFILE_STEPS = 3
+IO_COUNTERS = ("io.decode_wait_ms", "io.producer_wait_ms",
+               "io.consumer_wait_ms", "io.record_batches", "io.batches")
+IO_SPANS = ("io.read_records", "io.decode_batch", "io.stage_batch")
+
+
+def write_corpus(directory, n, hw):
+    """``n`` JPEGs of ``hw`` (quality 85, labels ``i % 1000``) as
+    ``bench.py:517-529`` makes them: one seeded noise image with a stripe
+    varied per record, in an indexed ``.rec``; returns its path."""
+    from mxnet_tpu_torch import recordio
+    rec_path = str(Path(directory) / f"data_{hw[0]}x{hw[1]}.rec")
+    rng = np.random.RandomState(26)
+    img = (rng.rand(hw[0], hw[1], 3) * 255).astype("uint8")
+    rec = recordio.MXIndexedRecordIO(rec_path[:-4] + ".idx", rec_path, "w")
+    for i in range(n):
+        img[i % hw[0], :, :] = (i * 37) % 255
+        rec.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(i % 1000), i, 0), img,
+            quality=DP_QUALITY))
+    rec.close()
+    return rec_path
+
+
+def _io_reading(snap):
+    """The ``io.*`` counters and spans of a telemetry snapshot, rounded
+    for a log line."""
+    out = {k: round(snap["counters"].get(k, 0.0), 3) for k in IO_COUNTERS}
+    for k in IO_SPANS:
+        sp = snap["spans"].get(k)
+        if sp:
+            out[k + "_ms"] = round(sp["total_ms"], 3)
+    return out
+
+
+def _epoch_rate(batches, step):
+    """Runs ``step`` on every (x, y) of ``batches`` (one epoch); returns
+    (steps, seconds, mean losses), synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(x, y) for x, y in batches]
+    torch.cuda.synchronize()
+    return len(losses), time.perf_counter() - t0, \
+        [float(l.mean()) for l in losses if l is not None]
+
+
+def phase_data_path(bs, path, card, train_ms):
+    """Phase 26 (see the module docstring); returns the bn-stats launches
+    of its fed training steps."""
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, telemetry
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    gpu = mx.gpu(0)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        rec = write_corpus(tmp, DP_IMAGES, DP_HW)
+        square = write_corpus(tmp, DP_SQUARE, (DP_HW[0], DP_HW[0]))
+        log(f"[data_path] corpus: {DP_IMAGES} JPEGs {DP_HW[0]}x{DP_HW[1]} "
+            f"q{DP_QUALITY} ({os.path.getsize(rec) / 2**20:.1f} MiB) and "
+            f"{DP_SQUARE} at {DP_HW[0]}x{DP_HW[0]} written in "
+            f"{time.perf_counter() - t0:.1f} s; os.cpu_count() "
+            f"{os.cpu_count()}")
+
+        # (a) which reader and decoder
+        it = mx.io.ImageRecordIter(path_imgrec=rec, **DP_ITER)
+        log(f"[data_path] reader: {it.reader}; decoder: {it.decoder}")
+        check(it.reader == "native", f"[data_path] the native RecordIO "
+                                     f"reader is not in use: {it.reader}")
+        check(it.decoder == "native" or it.decoder.startswith("cv2 ("),
+              f"[data_path] decoder {it.decoder}")
+        it.close()
+        _data_path_checks(mx, rec, square)
+
+        # (c) the train_imagenet route
+        net = get_model("resnet50_v1", classes=1000)
+        net.load_parameters(str(path))
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(TRAIN_OPT))
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def step(x, y):
+            check(x._data.is_cuda and y._data.is_cuda and
+                  x.shape == (TRAIN_BATCH,) + IMAGE and
+                  x.dtype == np.float32, f"[data_path] fed batch {x.shape} "
+                  f"{x.dtype} on {x.context}")
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(TRAIN_BATCH)
+            return loss._data.detach()
+
+        def serial(it):
+            for b in it:
+                yield b.data[0].as_in_context(gpu), \
+                    b.label[0].as_in_context(gpu)
+
+        def prefetched(it):
+            for b in mx.io.DevicePrefetchIter(it, depth=2):
+                yield b.data[0], b.label[0]
+
+        def pooled(it):
+            aug = it.augmenter
+            for b in mx.io.DevicePrefetchIter(it, depth=2):
+                yield aug(b.data[0], b.augment_flip, b.augment_crop), \
+                    b.label[0]
+
+        feeds = [("serial", {}, serial, step),
+                 ("DevicePrefetchIter", {}, prefetched, step),
+                 (f"{DP_PROCS} processes + device_augment",
+                  dict(preprocess_processes=DP_PROCS, device_augment=True,
+                       pipeline_timeout=DP_TIMEOUT), pooled, step),
+                 ("stage only", {}, prefetched,
+                  lambda x, y: x._data.sum() * 0 + y._data.sum() * 0)]
+        rates, steps_run = {}, 0
+        bs.bn_stats.launches = 0                 # the fed steps start
+        for name, extra, feed, fn in feeds:
+            it = mx.io.ImageRecordIter(path_imgrec=rec, seed=26,
+                                       **dict(DP_ITER, **extra))
+            try:
+                warm = _epoch_rate(feed(it), fn)
+                it.reset()
+                telemetry.enable()
+                telemetry.reset()
+                n, secs, losses = _epoch_rate(feed(it), fn)
+                snap = telemetry.snapshot()
+                telemetry.disable()
+                if name != "stage only":
+                    steps_run += warm[0] + n
+                    check(all(math.isfinite(v) for v in warm[2] + losses),
+                          f"[data_path] {name}: losses {losses}")
+                check(n == DP_IMAGES // TRAIN_BATCH,
+                      f"[data_path] {name}: {n} batches in an epoch")
+                rates[name] = n * TRAIN_BATCH / secs
+                log(f"[data_path] feed {name}: warm epoch "
+                    f"{warm[1]:.2f} s, timed epoch {n} batches in "
+                    f"{secs:.3f} s, {rates[name]:.1f} images/s "
+                    f"({secs * 1e3 / n:.2f} ms a batch); io: "
+                    f"{json.dumps(_io_reading(snap))}")
+                if name == "DevicePrefetchIter":
+                    profile_fed_steps(feed(it), step)
+                    steps_run += DP_PROFILE_STEPS + 1     # + its warm-up
+            finally:
+                it.close()
+        launches = bs.bn_stats.launches          # the fed steps end
+        check(launches == BN_PER_FORWARD * steps_run,
+              f"[data_path] {launches} bn-stats launches in {steps_run} "
+              f"fed steps (want {BN_PER_FORWARD} a forward)")
+        log(f"[data_path] train_imagenet route, resnet50_v1 NCHW fp32 "
+            f"batch {TRAIN_BATCH} (TF32 off): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in rates.items()) +
+            f" images/s; phase 9's synthetic step {train_ms:.3f} ms = "
+            f"{TRAIN_BATCH * 1e3 / train_ms:.1f} images/s in this call; "
+            f"{launches} bn-stats launches in {steps_run} fed steps; on "
+            f"{card}")
+        del net, trainer
+        gluon_launches = _gluon_route(mx, bs, rec, path, card)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[data_path] peak device memory {peak / 2**30:.3f} GiB; phase "
+            f"26 took {time.perf_counter() - t_phase:.1f} s")
+        return launches + gluon_launches
+    finally:
+        telemetry.disable()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _data_path_checks(mx, rec, square):
+    """Phase 26 (b): the process path, the staging and the device
+    prologue on the card against the host path, on this call's corpus."""
+    kw = dict(DP_ITER, seed=5)
+    thread = mx.io.ImageRecordIter(path_imgrec=rec, **kw)
+    procs = mx.io.ImageRecordIter(path_imgrec=rec, preprocess_processes=2,
+                                  pipeline_timeout=DP_TIMEOUT, **kw)
+    try:
+        for it in (thread, procs):
+            for _ in range(3):
+                it.next()
+            it.reset()                            # mid-epoch
+        n = 0
+        for a, b in zip(thread, procs):
+            check(torch.equal(a.data[0]._data, b.data[0]._data) and
+                  torch.equal(a.label[0]._data, b.label[0]._data) and
+                  a.pad == b.pad, f"[data_path] process path batch {n} "
+                  f"differs from the thread path")
+            n += 1
+        check(n == DP_IMAGES // TRAIN_BATCH, f"[data_path] {n} batches")
+        thread.reset()
+        pinned = thread.next().data[0]._data.is_pinned()
+    finally:
+        thread.close()
+        procs.close()
+    log(f"[data_path] preprocess_processes=2 equals the thread path bit "
+        f"for bit: {n} batches after a reset mid-epoch; host batches "
+        f"pinned: {pinned}")
+    check(pinned, "[data_path] host batches are not in pinned memory")
+
+    host = mx.io.ImageRecordIter(path_imgrec=rec, **kw)
+    host.reset()              # iterating a DevicePrefetchIter resets first
+    staged = mx.io.DevicePrefetchIter(
+        mx.io.ImageRecordIter(path_imgrec=rec, **kw), depth=2)
+    n = 0
+    for h, d in zip(host, staged):
+        check(d.data[0]._data.is_cuda and torch.equal(
+            d.data[0]._data.cpu(), h.data[0]._data) and torch.equal(
+            d.label[0]._data.cpu(), h.label[0]._data),
+            f"[data_path] staged batch {n} differs from the host batch")
+        n += 1
+    check(n == DP_IMAGES // TRAIN_BATCH, f"[data_path] {n} staged batches")
+    log(f"[data_path] DevicePrefetchIter (non_blocking copies from pinned "
+        f"batches on a side stream, event): {n} staged batches equal the "
+        f"host batches bit for bit")
+
+    kw_sq = dict(DP_ITER, seed=7)
+    dev = mx.io.ImageRecordIter(path_imgrec=square, device_augment=True,
+                                preprocess_processes=2,
+                                pipeline_timeout=DP_TIMEOUT, **kw_sq)
+    host = mx.io.ImageRecordIter(path_imgrec=square, **kw_sq)
+    host.reset()
+    worst, n = 0.0, 0
+    try:
+        for d, h in zip(mx.io.DevicePrefetchIter(dev, depth=2), host):
+            x = dev.augmenter(d.data[0], d.augment_flip, d.augment_crop)
+            want = h.data[0]._data
+            got = x._data.cpu()
+            check(x._data.is_cuda and got.shape == want.shape and
+                  torch.allclose(got, want, rtol=1e-5, atol=1e-4),
+                  f"[data_path] device prologue batch {n} differs from "
+                  f"the host augmentation by "
+                  f"{(got - want).abs().max().item():.3e}")
+            worst = max(worst, (got - want).abs().max().item())
+            n += 1
+    finally:
+        dev.close()
+    misses = dev.augmenter.compile_misses
+    check(n == DP_SQUARE // TRAIN_BATCH and misses == 1,
+          f"[data_path] device prologue: {n} batches, {misses} cache "
+          f"entries (want 1)")
+    log(f"[data_path] device_augment on the card equals the host "
+        f"augmentation: {n} batches, worst |diff| {worst:.3e} (rtol 1e-5, "
+        f"atol 1e-4), {misses} cache entry")
+
+
+def profile_fed_steps(batches, step):
+    """Device busy time against wall time over ``DP_PROFILE_STEPS`` fed
+    steps (torch.profiler; one fed step under its warm-up first)."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    batches = iter(batches)
+    warm_then_record = torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                               repeat=1)
+    with torch.profiler.profile(activities=acts,
+                                schedule=warm_then_record) as prof:
+        step(*next(batches))
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(DP_PROFILE_STEPS):
+            step(*next(batches))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    for _ in batches:                 # drain the epoch: the thread stops
+        pass
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    steps = DP_PROFILE_STEPS
+    if not busy_ms:
+        log(f"[profile] fed steps: {wall_ms / steps:.3f} ms wall a step; "
+            f"device time not measured (no CUDA events in the trace)")
+        return
+    log(f"[profile] fed steps (DevicePrefetchIter): {steps} steps "
+        f"{wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; "
+        f"{_kernel_share(kernels, busy_ms)}")
+
+
+def _gluon_route(mx, bs, rec, path, card):
+    """Phase 26 (d); returns its bn-stats launches."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    fn = T.Compose([T.RandomResizedCrop(IMAGE[1]), T.RandomFlipLeftRight(),
+                    T.ToTensor(),
+                    T.Normalize(mean=(0.485, 0.456, 0.406),
+                                std=(0.229, 0.224, 0.225))])
+    ds = gluon.data.vision.ImageRecordDataset(rec).transform_first(fn)
+    t0 = time.perf_counter()
+    loader = gluon.data.DataLoader(ds, batch_size=TRAIN_BATCH, shuffle=True,
+                                   num_workers=DP_LOADER_WORKERS,
+                                   pin_memory=True, last_batch="discard",
+                                   timeout=DP_TIMEOUT)
+    net = _gluon_resnet(path, None)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    gpu = mx.gpu(0)
+    losses, stamps = [], []
+    before = bs.bn_stats.launches
+    try:
+        for i, (x, y) in enumerate(loader):
+            check(x.context == mx.cpu() and x._data.is_pinned() and
+                  x.shape == (TRAIN_BATCH,) + IMAGE,
+                  f"[data_path] DataLoader batch {x.shape} on {x.context}")
+            x, y = x.as_in_context(gpu), y.as_in_context(gpu)
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(TRAIN_BATCH)
+            losses.append(float(loss.mean().asscalar()))
+            stamps.append(time.perf_counter())
+            if i + 1 == DP_GLUON_STEPS:
+                break
+    finally:
+        loader._pool.terminate()
+        loader._pool.join()
+    launches = bs.bn_stats.launches - before
+    check(len(losses) == DP_GLUON_STEPS and
+          all(math.isfinite(v) for v in losses),
+          f"[data_path] Gluon route losses {losses}")
+    check(launches == BN_PER_FORWARD * DP_GLUON_STEPS,
+          f"[data_path] Gluon route: {launches} bn-stats launches in "
+          f"{DP_GLUON_STEPS} steps")
+    rate = (len(stamps) - 1) * TRAIN_BATCH / (stamps[-1] - stamps[0])
+    log(f"[data_path] Gluon route: ImageRecordDataset + Compose("
+        f"RandomResizedCrop(224), RandomFlipLeftRight, ToTensor, Normalize)"
+        f" + DataLoader({DP_LOADER_WORKERS} spawned workers, pin_memory) "
+        f"into phase 24's ResNet-50 v1: first batch after "
+        f"{stamps[0] - t0:.2f} s (workers' start), then {rate:.1f} "
+        f"images/s over {len(stamps) - 1} steps; losses "
+        f"{[round(v, 4) for v in losses]}; {launches} bn-stats launches; "
+        f"on {card}")
+    return launches
+
+
 T_START = time.perf_counter()
 
 
@@ -3628,6 +4047,8 @@ def main():
     bn["gluon_launches"], bn["symbolblock_launches"] = \
         phase_gluon_authoring(bs, path, card, train_ms)
     phase_gluon_examples(card)
+    # slice 13: the data path
+    bn["fed_launches"] = phase_data_path(bs, path, card, train_ms)
     log(f"[smoke] wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [record, rtc_record, bn, bn_cl]}),
           flush=True)

@@ -11,7 +11,11 @@ table (``ops/``).  Training runs through ``mx.autograd`` (on
 store), ``mx.io``, ``mx.metric``, ``mx.init``, ``mx.callback``,
 ``mx.model`` and ``mx.mod.Module``.  Mixed precision is
 ``mx.contrib.amp`` (bf16 on the tensor cores, its loss scaler) with
-multi-precision SGD for fp16 weights.  The package imports neither JAX nor
+multi-precision SGD for fp16 weights.  The data path is ``mx.recordio``,
+``mx.io``'s record iterators (threads, worker processes, a device
+augmentation prologue, staging on a side stream), ``mx.image`` and
+``gluon.data``; its batches are host (CPU) NDArrays, pinned when a GPU is
+visible.  The package imports neither JAX nor
 ``mxnet_tpu``.  Entry points run on the GPU unless the caller asks for the
 CPU (``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``).
 """
@@ -20,6 +24,7 @@ from . import lr_scheduler, models, ndarray, ops, optimizer  # noqa: F401
 from . import name, random, rtc, serving  # noqa: F401
 from . import telemetry  # noqa: F401
 from . import callback, executor, io, kvstore, metric, model  # noqa: F401
+from . import image, recordio  # noqa: F401
 from . import module, symbol  # noqa: F401
 from . import contrib  # noqa: F401
 from . import initializer as init  # noqa: F401

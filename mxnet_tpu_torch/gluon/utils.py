@@ -13,28 +13,34 @@ import warnings
 import torch
 
 from .. import ndarray as nd
-from ..ndarray.ndarray import NDArray
+from ..context import as_device
+from ..ndarray.ndarray import NDArray, to_device
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
            "download", "shape_is_known"]
 
 
-def split_data(data, num_slice, batch_axis=0, even_split=True):
-    """``data`` cut into ``num_slice`` slices along ``batch_axis``
-    (``utils.py:36``); the last takes the remainder unless
-    ``even_split``."""
-    size = data.shape[batch_axis]
+def _bounds(shape, num_slice, batch_axis, even_split):
+    """The (begin, end) of each slice of :func:`split_data`."""
+    size = shape[batch_axis]
     if even_split and size % num_slice != 0:
         raise ValueError(
-            f"data with shape {data.shape} cannot be evenly split into "
+            f"data with shape {shape} cannot be evenly split into "
             f"{num_slice} slices along axis {batch_axis}. Use a batch size "
             f"that's multiple of {num_slice} or set even_split=False to "
             f"allow uneven partitioning of data.")
     if not even_split and size < num_slice:
         num_slice = size
     step = size // num_slice
-    bounds = [(i * step, (i + 1) * step if i < num_slice - 1 else size)
-              for i in range(num_slice)]
+    return [(i * step, (i + 1) * step if i < num_slice - 1 else size)
+            for i in range(num_slice)]
+
+
+def split_data(data, num_slice, batch_axis=0, even_split=True):
+    """``data`` cut into ``num_slice`` slices along ``batch_axis``
+    (``utils.py:36``); the last takes the remainder unless
+    ``even_split``."""
+    bounds = _bounds(data.shape, num_slice, batch_axis, even_split)
     if batch_axis == 0:
         return [data[lo:hi] for lo, hi in bounds]
     return [nd.slice_axis(data, axis=batch_axis, begin=lo, end=hi)
@@ -43,11 +49,19 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
     """One slice of ``data`` on each context of ``ctx_list``
-    (``utils.py:84``)."""
+    (``utils.py:84``).  A host batch (a CPU NDArray, pinned by the data
+    iterators) goes slice by slice straight from its memory, each copy
+    ``non_blocking`` from pinned memory to a GPU."""
     if not isinstance(data, NDArray):
         data = nd.array(data, ctx=ctx_list[0])
     if len(ctx_list) == 1:
         return [data.as_in_context(ctx_list[0])]
+    src = data._data
+    if src.device.type == "cpu":
+        bounds = _bounds(data.shape, len(ctx_list), batch_axis, even_split)
+        return [NDArray(to_device(src.narrow(batch_axis, lo, hi - lo),
+                                  as_device(ctx)))
+                for (lo, hi), ctx in zip(bounds, ctx_list)]
     slices = split_data(data, len(ctx_list), batch_axis, even_split)
     return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
 

@@ -1,7 +1,7 @@
 """``mx.nd``: the NDArray, its creation functions and one function per name
 in the op table (counterpart of ``mxnet_tpu/ndarray/__init__.py``), plus
-the ``random`` and ``contrib`` sub-namespaces and MXNet's ``.params``
-files (``save``/``load``/``load_frombuffer`` on NDArrays).
+the ``random``, ``contrib`` and ``image`` sub-namespaces and MXNet's
+``.params`` files (``save``/``load``/``load_frombuffer`` on NDArrays).
 """
 import sys as _sys
 
@@ -21,3 +21,4 @@ from . import op_namespaces as _ns  # noqa: E402
 
 random = _ns.random
 contrib = _ns.contrib
+image = _ns.image

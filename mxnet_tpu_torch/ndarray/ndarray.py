@@ -180,10 +180,13 @@ class NDArray:
         raise TypeError(f"copyto does not support type {type(other)}")
 
     def as_in_context(self, ctx):
+        """This array on ``ctx`` (itself when it is there already).  From
+        pinned host memory to a GPU the copy is ``non_blocking``: it is
+        queued on the current stream, which orders every later use."""
         device = as_device(ctx)
         if Context.from_device(device) == self.context:
             return self
-        return NDArray(self._data.to(device))
+        return NDArray(to_device(self._data, device))
 
     as_in_ctx = as_in_context
 
@@ -556,6 +559,14 @@ def _index_key(key, data):
             dim += 1
         out.append(k)
     return (tuple(out) if isinstance(key, tuple) else out[0]), flips
+
+
+def to_device(t, device):
+    """A copy of tensor ``t`` on ``device`` (never ``t`` itself);
+    ``non_blocking`` when it goes from pinned host memory to a GPU."""
+    pinned = device.type == "cuda" and t.device.type == "cpu" and \
+        t.is_pinned()
+    return t.to(device, non_blocking=pinned, copy=True)
 
 
 # ------------------------------------------------------------ invoke path

@@ -1,8 +1,9 @@
-"""``mx.nd.random`` and ``mx.nd.contrib``: façades over the same op table
-with the prefix stripped (``_random_uniform`` -> ``nd.random.uniform``,
-``_contrib_flash_attention`` -> ``nd.contrib.flash_attention``), as in
-``mxnet_tpu/ndarray/op_namespaces.py``.  ``linalg`` and ``image`` come
-with their ops (ROADMAP.md).
+"""``mx.nd.random``, ``mx.nd.contrib`` and ``mx.nd.image``: façades over
+the same op table with the prefix stripped (``_random_uniform`` ->
+``nd.random.uniform``, ``_contrib_flash_attention`` ->
+``nd.contrib.flash_attention``, ``_image_to_tensor`` ->
+``nd.image.to_tensor``), as in ``mxnet_tpu/ndarray/op_namespaces.py``.
+``linalg`` comes with its ops (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,3 +33,5 @@ random.multinomial = make_op_func(_reg.require("_sample_multinomial"))
 random.seed = _random.seed
 
 contrib = _facade("contrib", ("_contrib_",))
+
+image = _facade("image", ("_image_",))

@@ -14,6 +14,7 @@ from types import SimpleNamespace
 from . import registry  # noqa: F401
 from . import elemwise, broadcast_reduce, matrix  # noqa: F401
 from . import nn, random_ops, init_ops, optimizer_ops  # noqa: F401
+from . import image_ops  # noqa: F401
 from . import flash_attention as _fa
 from ..base import parse_bool
 from .registry import get, list_ops, register, require  # noqa: F401

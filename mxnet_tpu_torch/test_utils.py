@@ -13,7 +13,9 @@ case can be held against the JAX package (the CPU tests) and against the
 CPU from the card (``tests/test_torch_nd_gpu.py``, ``chip_smoke.py``).
 
 Tolerances (:func:`tolerance`): fp32 rtol 1e-5 and atol 1e-6; fp16 and
-bf16 1e-2 relative; exact cases exactly.
+bf16 1e-2 relative; exact cases exactly.  A case whose float inputs are
+not O(1) states their ``magnitude``, and its atol is scaled by it (the
+fp32 rounding of a sum of such values: 0-255 pixels in a resize).
 
 :func:`structural_params` gives a block's Gluon parameters under their
 structural names, the names ``save_parameters`` writes, for comparing
@@ -26,9 +28,10 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["Case", "OP_CASES", "RANDOM_CASES", "UPDATE_OPS", "make_inputs",
+__all__ = ["Case", "OP_CASES", "RANDOM_CASES", "UPDATE_OPS", "IMAGE_CASES",
+           "IMAGE_RANDOM_CASES", "image_random_outcome_ok", "make_inputs",
            "run_case", "compare", "tolerance", "case_id",
-           "structural_params"]
+           "structural_params", "with_gpus_hidden"]
 
 
 def structural_params(block):
@@ -48,6 +51,7 @@ class Case(NamedTuple):
     grad: bool = True
     exact: bool = False
     dtype: str = "float32"
+    magnitude: float = 1.0
 
 
 def _spec_array(spec, rng):
@@ -92,7 +96,7 @@ def tolerance(case):
         return 0.0, 0.0
     if case.dtype in ("float16", "bfloat16"):
         return 1e-2, 1e-2
-    return 1e-5, 1e-6
+    return 1e-5, 1e-6 * case.magnitude
 
 
 def run_case(nd, autograd, case, ctx, seed=0):
@@ -580,3 +584,100 @@ UPDATE_OPS += [
          {"lr": 0.01, "eta": 0.5, "wd": 0.1, "rescale_grad": 0.5},
          grad=False),
 ]
+
+# ---------------------------------------------------------------- image ops
+# the deterministic cases of ``ops/image_ops.py`` (kept out of OP_CASES, so
+# that no case moves between the two test files that split that list);
+# the random ops run here with a degenerate range, which makes them
+# deterministic, and by distribution in ``tests/test_torch_image.py``.
+# Float pixels are O(1), as the table's other inputs, apart from the
+# resizes at 0-255, the values the data path feeds: those state their
+# magnitude, which scales atol (a bilinear resize sums in another order on
+# the card, 5e-5 apart at a value of 255)
+_IMG = np.random.RandomState(7)
+_U8_HWC = _IMG.randint(0, 256, (6, 5, 3)).astype("uint8")
+_U8_NHWC = _IMG.randint(0, 256, (2, 6, 5, 3)).astype("uint8")
+_U8_CANVAS = _IMG.randint(0, 256, (4, 3, 10, 12)).astype("uint8")
+_FLIPS = np.array([1, 0, 0, 1], "uint8")
+# crop fractions that land on every offset, ends included
+_CROPS = np.array([[0.0, 0.999], [0.5, 0.25], [0.99, 0.0], [0.34, 0.67]],
+                  "float32")
+_AUG = {"out_h": 8, "out_w": 9, "mean_r": 123.68, "mean_g": 116.779,
+        "mean_b": 103.939, "std_r": 58.393, "std_g": 57.12,
+        "std_b": 57.375, "scale": 0.5}
+IMAGE_CASES = [
+    Case("_image_to_tensor", (_U8_HWC,), grad=False),
+    Case("_image_to_tensor", (_U8_NHWC,), grad=False),
+    Case("_image_normalize", (("n", (3, 6, 5)),),
+         {"mean": (0.5, 0.4, 0.3), "std": (0.2, 0.25, 0.3)}, grad=False),
+    Case("_image_normalize", (("n", (2, 3, 4, 5)),), {"mean": 0.5,
+                                                      "std": (0.2,)},
+         grad=False),
+    Case("_image_resize", (("u", (12, 10, 3), 0, 1),), {"size": (5, 6)},
+         grad=False),
+    Case("_image_resize", (("u", (12, 10, 3), 0, 1),), {"size": (16, 20)},
+         grad=False),
+    Case("_image_resize", (("u", (2, 12, 10, 3), 0, 1),),
+         {"size": 8, "keep_ratio": True}, grad=False),
+    Case("_image_resize", (("u", (12, 10, 3), 0, 1),),
+         {"size": (7, 5), "interp": 0}, grad=False),
+    Case("_image_resize", (("u", (12, 10, 3), 0, 255),), {"size": (16, 20)},
+         grad=False, magnitude=255.0),
+    Case("_image_resize", (("u", (2, 12, 10, 3), 0, 255),),
+         {"size": 8, "keep_ratio": True}, grad=False, magnitude=255.0),
+    Case("_image_augment", (_U8_CANVAS, _FLIPS, _CROPS),
+         dict(_AUG, rand_crop=True), grad=False),
+    Case("_image_augment", (_U8_CANVAS, _FLIPS, _CROPS), _AUG, grad=False),
+    Case("_image_crop", (("n", (6, 5, 3)),),
+         {"x": 1, "y": 2, "width": 3, "height": 2}, grad=False),
+    Case("_image_crop", (("n", (2, 6, 5, 3)),),
+         {"x": 0, "y": 1, "width": 4, "height": 5}, grad=False),
+    Case("_image_flip_left_right", (("n", (6, 5, 3)),), grad=False),
+    Case("_image_flip_top_bottom", (("n", (2, 6, 5, 3)),), grad=False),
+    Case("_image_adjust_lighting", (("u", (4, 5, 3), 0, 1),),
+         {"alpha": (0.1, -0.2, 0.05)}, grad=False),
+    Case("_image_random_brightness", (("u", (4, 5, 3), 0, 1),),
+         {"min_factor": 1.3, "max_factor": 1.3}, grad=False),
+    Case("_image_random_contrast", (("u", (4, 5, 3), 0, 1),),
+         {"min_factor": 0.7, "max_factor": 0.7}, grad=False),
+    Case("_image_random_saturation", (("u", (4, 5, 3), 0, 1),),
+         {"min_factor": 1.2, "max_factor": 1.2}, grad=False),
+    Case("_image_random_hue", (("u", (4, 5, 3), 0, 1),),
+         {"min_factor": 0.1, "max_factor": 0.1}, grad=False),
+    Case("_image_random_color_jitter", (("u", (4, 5, 3), 0, 1),), {},
+         grad=False),
+]
+
+# the random image ops by the outcomes they may give: (op, attrs, kind),
+# kind "flip_lr"/"flip_tb" (the input or its mirror), "shift" (the input
+# plus one value per channel) or "finite"
+IMAGE_RANDOM_CASES = [
+    ("_image_random_flip_left_right", {}, "flip_lr"),
+    ("_image_random_flip_top_bottom", {}, "flip_tb"),
+    ("_image_random_lighting", {"alpha_std": 0.1}, "shift"),
+    ("_image_random_color_jitter", {"brightness": 0.2, "contrast": 0.2,
+                                    "saturation": 0.2, "hue": 0.1},
+     "finite"),
+]
+
+
+def image_random_outcome_ok(kind, x, y):
+    """Whether ``y`` is an outcome the random image op of ``kind`` may give
+    on ``x`` (HWC numpy arrays)."""
+    if kind == "flip_lr":
+        return np.array_equal(y, x) or np.array_equal(y, x[:, ::-1])
+    if kind == "flip_tb":
+        return np.array_equal(y, x) or np.array_equal(y, x[::-1])
+    if kind == "shift":
+        d = (y - x).reshape(-1, x.shape[-1])
+        return bool(np.allclose(d, d[0], atol=1e-4))
+    return bool(np.isfinite(y).all() and y.shape == x.shape)
+
+
+def with_gpus_hidden(*sample):
+    """``sample`` and 1.0 when this process's environment hides every GPU
+    (``CUDA_VISIBLE_DEVICES`` empty), else 0.0: a transform for
+    ``DataLoader`` worker tests, importable by a spawned worker without the
+    test module (which imports the JAX package)."""
+    import os
+    return sample + (float(os.environ.get("CUDA_VISIBLE_DEVICES") == ""),)

@@ -376,10 +376,10 @@ def _seeded(name, shape, rng):
     return rng.normal(0, np.sqrt(2.0 / fan_in), shape)
 
 
-def _train_jax(name, path, x, y, perm):
-    """STEPS steps of the JAX package on the batch in the order ``perm``:
-    per-sample losses (in the original order), step-1 gradients, final
-    parameters and running statistics."""
+def _train_jax(name, path, batches, perm):
+    """A step of the JAX package on each (x, y) of ``batches``, in the
+    order ``perm``: per-sample losses (in the original order), step-1
+    gradients, final parameters and running statistics."""
     with jmx.name.NameManager():
         net = jvision.get_model(name, classes=10)
     net.load_parameters(path)
@@ -387,7 +387,7 @@ def _train_jax(name, path, x, y, perm):
     loss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
     params = net.collect_params()
     losses, grads = [], None
-    for step in range(STEPS):
+    for step, (x, y) in enumerate(batches):
         with jag.record():
             loss = loss_fn(net(jmx.nd.array(x[perm])), jmx.nd.array(y[perm]))
         loss.backward()
@@ -399,7 +399,8 @@ def _train_jax(name, path, x, y, perm):
     return losses, grads, {k: p.data().asnumpy() for k, p in params.items()}
 
 
-def _train_port(name, path, x, y):
+def _train_port(name, path, batches):
+    """The port's steps on ``batches`` of (x, y) CPU tensors."""
     with mx.name.NameManager():
         net = get_model(name, classes=10, device="cpu")
     net.load_parameters(path)
@@ -407,9 +408,9 @@ def _train_port(name, path, x, y):
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     params = net.collect_params()
     losses, grads = [], None
-    for step in range(STEPS):
+    for step, (x, y) in enumerate(batches):
         with ag.record():
-            loss = loss_fn(net(_t(x)), _t(y))
+            loss = loss_fn(net(x), y)
         ag.backward(loss)
         losses.append(loss.detach().numpy())
         if step == 0:
@@ -425,6 +426,41 @@ def _rel(a, b):
     assert sorted(a) == keys and keys
     return max(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30)
                for k in keys)
+
+
+def _seeded_params(name, x, path):
+    """Seeds the JAX package's ``name`` (10 classes; a forward on ``x``
+    fixes the deferred shapes) and saves it to ``path``."""
+    jnet = jvision.get_model(name, classes=10)
+    jnet.initialize()
+    jnet(jmx.nd.array(x))
+    seeds = np.random.RandomState(1)
+    for pname, p in sorted(jnet._collect_params_with_prefix().items()):
+        p.set_data(jmx.nd.array(_seeded(pname, p.shape, seeds)
+                                .astype("float32")))
+    jnet.save_parameters(path)
+    return path
+
+
+def _hold_to_jax(name, path, jax_batches, port_batches):
+    """The port's steps against the JAX package's under the rule of
+    :func:`test_resnet_training_steps_match_jax`."""
+    ref = _train_jax(name, path, jax_batches, np.arange(4))
+    others = [_train_jax(name, path, jax_batches, np.array(p))
+              for p in ([2, 0, 3, 1], [1, 3, 0, 2])]
+    port = _train_port(name, path, port_batches)
+
+    def check(what, pick):
+        spread = max(_rel(pick(o), pick(ref)) for o in others)
+        tol = max(1e-4, 2 * spread)
+        err = _rel(pick(port), pick(ref))
+        assert err <= tol, f"{name} {what}: {err:.3g} > {tol:.3g}"
+
+    for step in range(STEPS):
+        assert np.isfinite(port[0][step]).all()
+        check(f"loss of step {step + 1}", lambda r: {"l": r[0][step]})
+    check("step-1 gradients", lambda r: r[1])
+    check("parameters and running statistics after step 3", lambda r: r[2])
 
 
 @pytest.mark.parametrize("name", ["resnet18_v1", "resnet50_v1"])
@@ -451,32 +487,48 @@ def test_resnet_training_steps_match_jax(name, tmp_path):
     rng = np.random.RandomState(0)
     x = rng.randn(4, 3, 64, 64).astype("float32")
     y = rng.randint(0, 10, 4).astype("float32")
-    jnet = jvision.get_model(name, classes=10)
-    jnet.initialize()
-    jnet(jmx.nd.array(x))
-    seeds = np.random.RandomState(1)
-    for pname, p in sorted(jnet._collect_params_with_prefix().items()):
-        p.set_data(jmx.nd.array(_seeded(pname, p.shape, seeds)
-                                .astype("float32")))
-    path = str(tmp_path / "w.params")
-    jnet.save_parameters(path)
+    path = _seeded_params(name, x, str(tmp_path / "w.params"))
+    _hold_to_jax(name, path, [(x, y)] * STEPS, [(_t(x), _t(y))] * STEPS)
 
-    ref = _train_jax(name, path, x, y, np.arange(4))
-    others = [_train_jax(name, path, x, y, np.array(p))
-              for p in ([2, 0, 3, 1], [1, 3, 0, 2])]
-    port = _train_port(name, path, x, y)
 
-    def check(what, pick):
-        spread = max(_rel(pick(o), pick(ref)) for o in others)
-        tol = max(1e-4, 2 * spread)
-        err = _rel(pick(port), pick(ref))
-        assert err <= tol, f"{name} {what}: {err:.3g} > {tol:.3g}"
-
-    for step in range(STEPS):
-        assert np.isfinite(port[0][step]).all()
-        check(f"loss of step {step + 1}", lambda r: {"l": r[0][step]})
-    check("step-1 gradients", lambda r: r[1])
-    check("parameters and running statistics after step 3", lambda r: r[2])
+def test_resnet18_fed_by_image_record_iter_matches_jax(tmp_path):
+    """The ResNet-18 v1 case above fed by ``ImageRecordIter`` in each
+    package: three batches of (4, 3, 64, 64) (random crops of 72x72
+    JPEGs, mirror, ImageNet mean/std).  The two iterators give the same
+    batches bit for bit, and the port, trained on its own iterator's
+    tensors, holds to the JAX package under the same rule (on these
+    batches the parameters after step 3 have read 4e-4 apart in a loaded
+    run, so the spread is needed, not only the floor).  It runs beside the
+    case above so that the JAX package's per-op programs, of the same
+    shapes, are compiled once in the process."""
+    from mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(0)
+    rec_path = str(tmp_path / "r.rec")
+    w = recordio.MXRecordIO(rec_path, "w")
+    for i in range(STEPS * 4):
+        img = (rng.rand(72, 72, 3) * 255).astype("uint8")
+        w.write(recordio.pack_img(recordio.IRHeader(0, float(i % 10), i, 0),
+                                  img, quality=90))
+    w.close()
+    kw = dict(path_imgrec=rec_path, data_shape=(3, 64, 64), batch_size=4,
+              shuffle=True, rand_crop=True, rand_mirror=True, seed=1,
+              mean_r=123.68, mean_g=116.779, mean_b=103.939, std_r=58.393,
+              std_g=57.12, std_b=57.375)
+    jbatches = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                for b in jmx.io.ImageRecordIter(**kw)]
+    it = mx.io.ImageRecordIter(**kw)
+    try:
+        fed = [(b.data[0]._data, b.label[0]._data) for b in it]
+    finally:
+        it.close()
+    assert len(fed) == STEPS and all(
+        x.device.type == "cpu" for b in fed for x in b)
+    for (x, y), (jx, jy) in zip(fed, jbatches):
+        np.testing.assert_array_equal(x.numpy(), jx)
+        np.testing.assert_array_equal(y.numpy(), jy)
+    path = _seeded_params("resnet18_v1", jbatches[0][0],
+                          str(tmp_path / "w.params"))
+    _hold_to_jax("resnet18_v1", path, jbatches, fed)
 
 
 # ----------------------------------------------------------------- Adam
