@@ -276,8 +276,40 @@ beside the backward's bound.  Phase 3 holds and times the forward at phase
    24's Gluon ResNet-50 v1 for 10 steps: images/s, finite losses, 53
    launches a forward.
 
-Phases 4, 6, 9, 11, 17, 18 and 22 print a ``[profile]`` breakdown of one
-micro-batch or step.  The last two lines are the kernels' JSON record and
+27. decode serving (``[decode]``): (a) the port's two decode kernels
+   against their plain versions at GPT-2 small's served shapes (batch 8,
+   768 units, 12 heads, vocab 50257, page 16, a 1024-token table):
+   ``rowdot`` (``csrc/rowdot.cu``) on every contraction of a step and on
+   1024 prefill rows, the logits over ``embed.T`` without a copy, within
+   1e-5 of the largest magnitude, and its rows of N = 1..8 bitwise equal
+   to 1-row calls; the paged attention kernel (``csrc/paged_attention.cu``)
+   over fp32, int8 and fp8 pools, step and verify (K = 4), D 64 and 32,
+   within 1e-5, bitwise invariant to batch composition, physical page
+   placement and the query count; each timed for one step beside its
+   plain version, its library yardstick (``torch.matmul``, not
+   batch-invariant; ``_kv_gather`` + ``F.scaled_dot_product_attention``)
+   and its bound.  (b) ``decode_base`` (vocab 512, seeded weights) on the
+   card, every contract bit for bit: 12 requests solo == continuous from 4
+   client threads, greedy and sampled, prefix hits == cold, shared prefix
+   == a cache without sharing (fp32, int8, fp8 pools), speculative
+   decoding (``NgramDrafter`` and a ``ModelDrafter`` of ``decode_tiny``)
+   == plain, int8 and fp8 sessions deterministic, ``decode.compile_miss``
+   0 after warm; prefill and step logits within 1e-4 of their max of the
+   CPU plain run of the same weights, the flash kernel launched once a
+   layer on the prefill.  (c) The served run at GPT-2 small's width
+   (``get_decode_model("decode_base", units=768, num_layers=12,
+   num_heads=12, vocab_size=50257, max_length=1024)``, seeded N(0, 0.02)
+   weights): ``DecodeSession`` (page 16, batch buckets 1-8, seq buckets
+   128-512) answering 32 requests from 8 client threads, prompts of
+   128-512 tokens, 128 new tokens, half greedy, half at temperature 0.8:
+   output tokens/s, TTFT and per-token latency p50/p99, peak memory, the
+   launches of the three kernels (their counts set to 0 just before and
+   read just after: the slice's main path); 4 of the requests run solo
+   equal the served tokens bit for bit; a ``[profile]`` of 20 steps at
+   batch 8 (idle share, kernel A and B device ms and launches a step).
+
+Phases 4, 6, 9, 11, 17, 18, 22 and 27 print a ``[profile]`` breakdown of
+one micro-batch or step.  The last two lines are the kernels' JSON record and
 the device line.
 """
 from __future__ import annotations
@@ -3977,6 +4009,660 @@ def _gluon_route(mx, bs, rec, path, card):
     return launches
 
 
+# ------------------------------------------------- slice 15: decode serving
+# GPT-2 small's published widths (the CausalLM is GPT-2's architecture)
+GPT2 = dict(units=768, num_layers=12, num_heads=12, vocab_size=50257,
+            max_length=1024)
+DEC_PAGE, DEC_BUCKETS = 16, (1, 2, 4, 8)
+DEC_VOCAB, DEC_REQUESTS = 512, 12                  # (b)'s decode_base
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_NEW = 32, 8, 128
+SERVE_PROMPTS = (128, 512)                         # prompt lengths, inclusive
+SERVE_SEQ = (128, 256, 512)                        # their seq buckets
+PROFILE_STEPS = 20
+DEC_TIMEOUT = 300                                  # every wait, seconds
+DEC_KERNEL_TOL = 1e-5                              # of the largest magnitude
+DEC_CPU_TOL = 1e-4                                 # card against the CPU
+PREFILL_ROWS = 8 * 512                             # bucket (8, 512): B x S
+
+
+def _dec_weights(net, seed, std):
+    """Seeded weights: N(0, std) matrices (GPT-2's 0.02 at its width),
+    LayerNorm gains 1 and biases 0, drawn on the net's device."""
+    g = torch.Generator(device=net.device).manual_seed(seed)
+    with torch.no_grad():
+        for name in net._param_order:
+            t = net._reg_params[name].tensor()
+            if t.dim() == 2:
+                t.normal_(0.0, std, generator=g)
+            elif name.endswith("_g"):
+                t.fill_(1.0)
+            else:
+                t.zero_()
+    return net
+
+
+def _dec_model(mx, dec, name, seed, std, **kw):
+    with mx.gpu(0):
+        net = dec.get_decode_model(name, **kw)
+        net.initialize()
+    return _dec_weights(net, seed, std)
+
+
+def _rowdot_shapes(units, hidden, vocab, n):
+    """One decode step's contractions per layer, then the logits:
+    (name, n, u, v, transposed w, calls a step)."""
+    return [("qkv", n, units, 3 * units, False, 1),
+            ("wo", n, units, units, False, 1),
+            ("w1", n, units, hidden, False, 1),
+            ("w2", n, hidden, units, False, 1),
+            ("logits", n, units, vocab, True, 0)]
+
+
+def _rowdot_plain(rd, x, w, b=None):
+    """The plain version over row chunks of about 1.2 GB of broadcast."""
+    rows = max(1, int(3e8 // (x.shape[1] * w.shape[1])))
+    y = torch.cat([rd._reference(x[i:i + rows], w)
+                   for i in range(0, x.shape[0], rows)])
+    return y if b is None else y + b
+
+
+def _rowdot_bound_ms(n, u, v):
+    by_bytes = (n * u + u * v + v + n * v) * 4 / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * n * u * v / PEAK_FLOPS[torch.float32] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def _decode_rowdot(rd, card):
+    """Kernel A against its plain version at GPT-2 small's decode shapes
+    (N = 8) and a prefill shape (N = 1024), both orientations; its rows
+    bitwise equal to 1-row calls for N = 1..8; its time for one decode
+    step and for one prefill of the (8, 512) bucket (the contractions of
+    every layer on B x S rows; the logits take B rows)."""
+    rng = np.random.RandomState(27)
+    units, layers = GPT2["units"], GPT2["num_layers"]
+    err, sums = 0.0, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                          library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    pre = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for name, n, u, v, trans, per_layer in _rowdot_shapes(
+            units, 4 * units, GPT2["vocab_size"], 8):
+        w = torch.from_numpy((rng.randn(v, u) if trans else rng.randn(u, v))
+                             .astype("float32") * 0.02).cuda()
+        w = w.t() if trans else w
+        b = None if trans else torch.from_numpy(
+            rng.randn(v).astype("float32")).cuda()
+        x = torch.from_numpy(rng.randn(1024, u).astype("float32")).cuda()
+        # the prefill runs every contraction but the logits on B x S rows
+        for rows in (8,) if trans else (8, 1024):
+            y = rd.rowdot(x[:rows], w, b)
+            e = (y - _rowdot_plain(rd, x[:rows], w, b)).abs().max().item()
+            scale = y.abs().max().item()
+            check(e <= DEC_KERNEL_TOL * scale,
+                  f"rowdot {name} ({rows}, {u}) x ({u}, {v}) off its plain "
+                  f"version by {e:.3e} (max {scale:.3e})")
+            err = max(err, e)
+        solo = torch.cat([rd.rowdot(x[r:r + 1], w, b) for r in range(8)])
+        for rows in range(1, 9):
+            check(torch.equal(rd.rowdot(x[:rows], w, b), solo[:rows]),
+                  f"rowdot {name}: a {rows}-row call's rows differ from "
+                  f"1-row calls")
+        xs = x[:n].contiguous()
+        ms = device_ms(lambda: rd.rowdot(xs, w, b), iters=20)
+        plain_ms = device_ms(lambda: _rowdot_plain(rd, xs, w, b), iters=5)
+        lib_ms = device_ms(lambda: torch.matmul(xs, w), iters=20)
+        bound, by = _rowdot_bound_ms(n, u, v)
+        calls = layers * per_layer or 1
+        log(f"[decode] rowdot {name} ({n}, {u}) x ({u}, {v})"
+            f"{' (embed.T view)' if trans else ''}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f}, torch.matmul {lib_ms:.4f} (not "
+            f"batch-invariant), bound {bound:.4f} ({by}); x{calls} a step")
+        sums["ms"] += calls * ms
+        sums["plain_ms"] += calls * plain_ms
+        sums["library_ms"] += calls * lib_ms
+        sums["bound_ms"] += calls * bound
+        sums["ops_ms"] += calls * 2 * n * u * v / PEAK_FLOPS[torch.float32] \
+            * 1e3
+        sums["bytes_ms"] += calls * (n * u + u * v + v + n * v) * 4 \
+            / HBM_BYTES_PER_S * 1e3
+        if per_layer:
+            xp = torch.from_numpy(rng.randn(PREFILL_ROWS, u).astype(
+                "float32")).cuda()
+            p_ms = device_ms(lambda: rd.rowdot(xp, w, b), iters=5)
+            p_plain = device_ms(lambda: _rowdot_plain(rd, xp, w, b), iters=2)
+            p_lib = device_ms(lambda: torch.matmul(xp, w), iters=5)
+            p_bound, p_by = _rowdot_bound_ms(PREFILL_ROWS, u, v)
+            log(f"[decode] rowdot {name} prefill ({PREFILL_ROWS}, {u}) x "
+                f"({u}, {v}): kernel {p_ms:.4f} ms, plain {p_plain:.4f}, "
+                f"torch.matmul {p_lib:.4f}, bound {p_bound:.4f} ({p_by}); "
+                f"x{layers} a prefill")
+            for key, val in (("ms", p_ms), ("plain_ms", p_plain),
+                             ("library_ms", p_lib), ("bound_ms", p_bound)):
+                pre[key] += layers * val
+    bound_by = "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else \
+        "operations"
+    log(f"[decode] rowdot, one GPT-2 small decode step at batch 8 "
+        f"({4 * layers + 1} calls): kernel {sums['ms']:.4f} ms, plain "
+        f"{sums['plain_ms']:.4f}, torch.matmul {sums['library_ms']:.4f}, "
+        f"bound {sums['bound_ms']:.4f} ({bound_by}); max |err| {err:.3e}; "
+        f"rows of N = 1..8 bitwise equal to 1-row calls; on {card}")
+    log(f"[decode] rowdot, one GPT-2 small prefill of the (8, 512) bucket "
+        f"({4 * layers} calls on {PREFILL_ROWS} rows): kernel "
+        f"{pre['ms']:.4f} ms, plain {pre['plain_ms']:.4f}, torch.matmul "
+        f"{pre['library_ms']:.4f}, bound {pre['bound_ms']:.4f} (operations "
+        f"at the fp32 FMA rate); on {card}")
+    return {"name": "rowdot", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/rowdot.cu",
+            "replaces": "none: the port's own (the JAX decode model's "
+                        "rowdot, mxnet_tpu/serving/decode/model.py:41, "
+                        "is XLA)",
+            "shape": "one GPT-2 small decode step at batch 8",
+            "dtype": "float32", "max_abs_err": err, "ms": sums["ms"],
+            "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+            "bound_by": bound_by, "library_ms": sums["library_ms"],
+            "prefill": dict(pre, shape=f"one GPT-2 small prefill of "
+                            f"({PREFILL_ROWS}, 768) rows, 48 calls",
+                            bound_by="operations")}
+
+
+def _pa_case(dec, kind, rng, b, heads, d, n_tab, pages):
+    k = torch.from_numpy(rng.randn(pages, DEC_PAGE, heads, d)
+                         .astype("float32")).cuda()
+    v = torch.from_numpy(rng.randn(pages, DEC_PAGE, heads, d)
+                         .astype("float32")).cuda()
+    perm = rng.permutation(np.arange(1, pages))[:b * n_tab]
+    tables = torch.from_numpy(perm.reshape(b, n_tab).astype("int32")).cuda()
+    if kind == "fp32":
+        return k, v, None, tables
+    if kind == "int8":
+        kq, ks, km = dec.kv_quantize_rows(k)
+        vq, vs, vm = dec.kv_quantize_rows(v)
+        return kq, vq, [ks, km, vs, vm], tables
+    kq, ks = dec.kv_quantize_rows_fp8(k)
+    vq, vs = dec.kv_quantize_rows_fp8(v)
+    return kq, vq, [ks, vs], tables
+
+
+def _sdpa_on_gathered(pa, q, k, v, tables, positions):
+    """The library yardstick: ``_kv_gather`` plus
+    ``F.scaled_dot_product_attention`` over the gathered context."""
+    kg, vg = pa.gather_pages(k, v, tables)
+    lctx = kg.shape[1]
+    mask = torch.arange(lctx, device=q.device)[None, :] <= \
+        positions.long()[:, None]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+        attn_mask=mask[:, None, None, :], scale=1.0)
+
+
+def _decode_attention(pa, dec, card):
+    """Kernel B against its plain version at GPT-2 small's served shape
+    (batch 8, 12 heads, D 64, a 1024-token table) over fp32, int8 and fp8
+    pools, step and verify (K = 4), and at decode_base's D 32; its
+    invariance to batch composition, page placement and the query count;
+    its time for one step's 12 layers."""
+    rng = np.random.RandomState(28)
+    heads, d = GPT2["num_heads"], GPT2["units"] // GPT2["num_heads"]
+    n_tab = GPT2["max_length"] // DEC_PAGE
+    pos = torch.tensor([200, 300, 400, 500, 550, 600, 620, 639],
+                       dtype=torch.int32, device="cuda")
+    err = 0.0
+    for kind in ("fp32", "int8", "fp8"):
+        for dd, hh in ((d, heads), (32, 8)):
+            k, v, quant, tables = _pa_case(dec, kind, rng, 8, hh, dd, n_tab,
+                                           8 * n_tab + 1)
+            for nq in (1, 5):
+                q = torch.from_numpy(rng.randn(8, nq, hh, dd).astype(
+                    "float32") * dd ** -0.5).cuda()
+                out = pa.paged_attention(q, k, v, tables, pos, quant)
+                ref = pa._reference(q, k, v, tables, pos, quant)
+                e = (out - ref).abs().max().item()
+                check(e <= DEC_KERNEL_TOL * ref.abs().max().item(),
+                      f"paged attention {kind} D={dd} nq={nq} off its plain "
+                      f"version by {e:.3e}")
+                err = max(err, e)
+            # invariance: rows alone, a permuted batch, moved pages, and
+            # the verify's query j against a step at position + j
+            q = torch.from_numpy(rng.randn(8, 5, hh, dd).astype("float32")
+                                 * dd ** -0.5).cuda()
+            full = pa.paged_attention(q, k, v, tables, pos, quant)
+            for r in (0, 5):
+                check(torch.equal(pa.paged_attention(
+                    q[r:r + 1], k, v, tables[r:r + 1], pos[r:r + 1], quant),
+                    full[r:r + 1]), f"paged attention {kind}: row {r} "
+                                    f"alone differs")
+            perm = [3, 1, 7, 0, 2, 6, 4, 5]
+            check(torch.equal(pa.paged_attention(
+                q[perm], k, v, tables[perm], pos[perm], quant), full[perm]),
+                f"paged attention {kind}: a permuted batch differs")
+            for j in range(5):
+                check(torch.equal(pa.paged_attention(
+                    q[:, j:j + 1].contiguous(), k, v, tables, pos + j, quant),
+                    full[:, j:j + 1]), f"paged attention {kind}: verify "
+                                       f"query {j} differs from the step")
+            # every row's pages moved to other physical pages (row r takes
+            # row r - 1's page ids), their content (and sidecars) with them
+            moved = torch.roll(tables, 1, dims=0)
+            kk, vv = k.clone(), v.clone()
+            sides = [t.clone() for t in quant or []]
+            for a, c in zip([k, v] + list(quant or []), [kk, vv] + sides):
+                pa.pool_bytes(c)[moved.flatten().long()] = \
+                    pa.pool_bytes(a)[tables.flatten().long()]
+            check(torch.equal(pa.paged_attention(
+                q, kk, vv, moved, pos, sides or None), full),
+                f"paged attention {kind}: moved pages change the result")
+    k, v, _, tables = _pa_case(dec, "fp32", rng, 8, heads, d, n_tab,
+                               8 * n_tab + 1)
+    q = torch.from_numpy(rng.randn(8, 1, heads, d).astype("float32")
+                         * d ** -0.5).cuda()
+    layers = GPT2["num_layers"]
+    ms = device_ms(lambda: pa.paged_attention(q, k, v, tables, pos))
+    plain_ms = device_ms(lambda: pa._reference(q, k, v, tables, pos),
+                         iters=10)
+    lib_ms = device_ms(lambda: _sdpa_on_gathered(pa, q, k, v, tables, pos),
+                       iters=10)
+    live = int((pos.long() + 1).sum())
+    nbytes = (2 * live * heads * d + 2 * q.numel()) * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * live * heads * d / PEAK_FLOPS[torch.float32] * 1e3
+    bound, bound_by = max(by_bytes, by_ops), \
+        ("bytes" if by_bytes >= by_ops else "operations")
+    log(f"[decode] paged attention, one GPT-2 small layer at batch 8 "
+        f"(positions {pos.tolist()}, {live} live keys, {nbytes / 1e6:.2f} "
+        f"MB): kernel {ms:.4f} ms, plain {plain_ms:.4f}, gather + SDPA "
+        f"{lib_ms:.4f}, bound {bound:.4f} ({bound_by}); x{layers} a step; "
+        f"fp32, int8 and fp8 pools, step and verify K=4, D 64 and 32, max "
+        f"|err| {err:.3e}; invariant to batch, page placement and query "
+        f"count; on {card}")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "none: the port's own (the JAX decode step's "
+                        "_kv_gather + einsum + softmax, "
+                        "mxnet_tpu/serving/decode/model.py:138, is XLA)",
+            "shape": "one GPT-2 small decode step at batch 8 (12 layers)",
+            "dtype": "float32", "max_abs_err": err, "ms": layers * ms,
+            "plain_ms": layers * plain_ms, "bound_ms": layers * bound,
+            "bound_by": bound_by, "library_ms": layers * lib_ms}
+
+
+def _dec_requests(rng, n, lo, hi, vocab, new, sampled_every=2):
+    return [dict(prompt=[int(t) for t in rng.randint(
+        1, vocab, int(rng.randint(lo, hi + 1)))], max_new_tokens=new,
+        temperature=0.8 if i % sampled_every else 0.0, seed=1000 + i)
+        for i in range(n)]
+
+
+def _dec_solo(sess, reqs):
+    return [sess.generate(timeout=DEC_TIMEOUT, **r).token_ids for r in reqs]
+
+
+def _dec_continuous(sess, reqs, clients=4):
+    """The requests from ``clients`` threads at once, each submitting its
+    share; returns the token lists in request order."""
+    out = [None] * len(reqs)
+    errors = []
+
+    def client(idx):
+        try:
+            for i in idx:
+                out[i] = sess.generate(timeout=DEC_TIMEOUT,
+                                       **reqs[i]).token_ids
+        except Exception as e:               # noqa: BLE001 (reported)
+            errors.append(e)
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, len(reqs), clients),))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(DEC_TIMEOUT)
+    check(not errors and all(o is not None for o in out),
+          f"decode clients failed: {errors[:2]}")
+    return out
+
+
+def _decode_contracts(mx, dec, tel, fa):
+    """decode_base (vocab 512) on the card: every decode contract bit for
+    bit, zero compile misses after warm, and the card's prefill and step
+    logits against the CPU plain run of the same weights."""
+    net = _dec_model(mx, dec, "decode_base", 1, 0.1, vocab_size=DEC_VOCAB,
+                     max_length=128)
+    rng = np.random.RandomState(29)
+    reqs = _dec_requests(rng, DEC_REQUESTS, 3, 60, DEC_VOCAB, 10)
+    for i, r in enumerate(reqs):
+        r["max_new_tokens"] = 4 + (i * 5) % 17
+    kw = dict(page_size=DEC_PAGE, batch_buckets=DEC_BUCKETS)
+    tel.reset()
+    tel.enable()
+    sess = dec.DecodeSession(net, **kw)
+    try:
+        solo = _dec_solo(sess, reqs)
+        sess.cache.drop_prefix_cache()
+        cont = _dec_continuous(sess, reqs)
+        again = _dec_solo(sess, reqs[:4])           # prefix hits
+    finally:
+        sess.close(drain=False, timeout=60)
+    snap = tel.snapshot()["counters"]
+    tel.disable()
+    check(cont == solo, "continuous batching changed a request's tokens")
+    check(again == solo[:4], "a prefix hit changed a request's tokens")
+    check(not snap.get("decode.compile_miss"),
+          f"{snap.get('decode.compile_miss')} compile misses after warm")
+    check(snap.get("decode.prefill_skips", 0) >= 1, "no prefix hit")
+    log(f"[decode] decode_base on the card: {DEC_REQUESTS} requests solo == "
+        f"continuous (4 client threads, greedy and T 0.8) bit for bit, 4 "
+        f"prefix hits == cold, decode.compile_miss 0 "
+        f"({int(snap.get('decode.steps', 0))} steps, "
+        f"{int(snap.get('decode.prefill_skips', 0))} prefill skips)")
+    # shared prefix against a cold cache (prefix sharing off)
+    sysp = [int(t) for t in rng.randint(1, DEC_VOCAB, 40)]
+    shared_reqs = [dict(prompt=sysp + [int(t) for t in rng.randint(
+        1, DEC_VOCAB, 1 + i % 5)], max_new_tokens=6 + i % 4,
+        temperature=0.6 * (i % 2), seed=300 + i) for i in range(8)]
+    shared_reqs[3] = dict(prompt=sysp, max_new_tokens=5, temperature=0.9,
+                          seed=77)
+    outs = {}
+    for label, sharing in (("shared", True), ("cold", False)):
+        s = dec.DecodeSession(net, prefix_sharing=sharing, **kw)
+        try:
+            _dec_solo(s, shared_reqs[:1])
+            outs[label] = _dec_continuous(s, shared_reqs)
+            hits = s.cache.stats()["prefix_hits"]
+        finally:
+            s.close(drain=False, timeout=60)
+        if sharing:
+            check(hits >= 1, "the shared session never hit its prefix")
+    check(outs["shared"] == outs["cold"], "shared prefix != cold")
+    # speculative decoding against plain, both drafters
+    rep = [dict(prompt=([5, 9, 2, 7] * 12)[:20 + i], max_new_tokens=12,
+                temperature=0.7 * (i % 2), seed=500 + i) for i in range(6)]
+    plain = dec.DecodeSession(net, spec_buckets=(4,), **kw)
+    try:
+        want = _dec_solo(plain, rep)
+    finally:
+        plain.close(drain=False, timeout=60)
+    draft = _dec_model(mx, dec, "decode_tiny", 2, 0.1, vocab_size=DEC_VOCAB,
+                       max_length=128)
+    for label, drafter in (("ngram", dec.NgramDrafter()),
+                           ("model", dec.ModelDrafter(draft))):
+        tel.reset()
+        tel.enable()
+        s = dec.DecodeSession(net, drafter=drafter, spec_k=4, **kw)
+        try:
+            got = _dec_continuous(s, rep, clients=3)
+        finally:
+            s.close(drain=False, timeout=60)
+        snap = tel.snapshot()["counters"]
+        tel.disable()
+        check(got == want, f"speculative ({label}) != plain")
+        check(snap.get("decode.spec_steps", 0) >= 1,
+              f"the {label} drafter never speculated")
+        log(f"[decode] speculative ({label} drafter) == plain bit for bit: "
+            f"{int(snap.get('decode.spec_steps', 0))} verify steps, "
+            f"{int(snap.get('decode.spec_accepted', 0))} of "
+            f"{int(snap.get('decode.spec_proposed', 0))} drafts accepted")
+    # int8 and fp8 pools: deterministic, shared == cold
+    for kv_dtype in ("int8", "fp8_e4m3"):
+        res = {}
+        for label, sharing in (("shared", True), ("cold", False)):
+            s = dec.DecodeSession(net, kv_dtype=kv_dtype,
+                                  prefix_sharing=sharing, **kw)
+            try:
+                # prompts of whole pages and more, so that a repeat is a
+                # prefix hit
+                res[label] = _dec_solo(s, shared_reqs[:3] * 2)
+                if sharing:
+                    check(s.cache.stats()["prefix_hits"] >= 3,
+                          f"{kv_dtype}: no prefix hits")
+            finally:
+                s.close(drain=False, timeout=60)
+        check(res["shared"][:3] == res["shared"][3:],
+              f"{kv_dtype} session not deterministic")
+        check(res["shared"] == res["cold"], f"{kv_dtype}: shared != cold")
+    log("[decode] shared prefix == cold (fp32, int8, fp8 pools), int8 and "
+        "fp8 sessions deterministic, bit for bit")
+    # the card against the CPU plain run of the same weights
+    with mx.cpu():
+        cpu_net = dec.get_decode_model("decode_base", vocab_size=DEC_VOCAB,
+                                       max_length=128)
+        cpu_net.initialize()
+    with torch.no_grad():
+        for name in net._param_order:
+            cpu_net._reg_params[name].tensor().copy_(
+                net._reg_params[name].tensor().cpu())
+    pg = net._params_dict(net.param_leaves())
+    pc = cpu_net._params_dict(cpu_net.param_leaves())
+    tokens = rng.randint(0, DEC_VOCAB, (4, 64)).astype("int32")
+    lengths = np.array([64, 33, 7, 50], "int32")
+    fa.flash_attention.launches = 0
+    with torch.no_grad():
+        lg, kvg = net.prefill_math(pg, torch.from_numpy(tokens).cuda(),
+                                   torch.from_numpy(lengths).cuda())
+        lc, kvc = cpu_net.prefill_math(pc, torch.from_numpy(tokens),
+                                       torch.from_numpy(lengths))
+    check(fa.flash_attention.launches == net.num_layers,
+          f"{fa.flash_attention.launches} flash launches in a prefill "
+          f"(want {net.num_layers})")
+    e_pre = (lg.cpu() - lc).abs().max().item() / lc.abs().max().item()
+    check(e_pre <= DEC_CPU_TOL, f"prefill logits off the CPU by {e_pre:.3e}")
+    shape = (net.num_layers, 40, DEC_PAGE, net.num_heads, net.head_dim)
+    pools = [torch.from_numpy(rng.randn(*shape).astype("float32"))
+             for _ in range(2)]
+    tables = np.array([[1, 2, 3, 0, 0, 0, 0, 0], [9, 8, 7, 6, 5, 0, 0, 0]],
+                      "int32")
+    positions = np.array([40, 70], "int32")
+    step_tok = np.array([11, 500], "int32")
+    with torch.no_grad():
+        sg = net.step_math(pg, *(torch.from_numpy(a).cuda() for a in (
+            step_tok, positions, tables)), pools[0].cuda(), pools[1].cuda(),
+            DEC_PAGE)[0]
+        sc = cpu_net.step_math(pc, *(torch.from_numpy(a) for a in (
+            step_tok, positions, tables)), pools[0].clone(),
+            pools[1].clone(), DEC_PAGE)[0]
+    e_step = (sg.cpu() - sc).abs().max().item() / sc.abs().max().item()
+    check(e_step <= DEC_CPU_TOL, f"step logits off the CPU by {e_step:.3e}")
+    log(f"[decode] card against the CPU plain run: prefill logits "
+        f"{e_pre:.3e}, step logits {e_step:.3e} of their max (tolerance "
+        f"{DEC_CPU_TOL}); {net.num_layers} flash launches a prefill")
+
+
+def _percentile(values, q):
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def _decode_profile(rt, rd, pa, reqs):
+    """``PROFILE_STEPS`` steps of batch 8 under the profiler, driven on the
+    runtime (the served run's model and cache): device busy and idle
+    share, kernel A and B device ms a step, launches a step."""
+    from torch.autograd import DeviceType
+    cache = rt.cache
+    from mxnet_tpu_torch.serving.decode import pages_needed
+    slots = [cache.alloc(pages_needed(len(r["prompt"]), r["max_new_tokens"],
+                                      cache.page_size)) for r in reqs]
+    try:
+        b = len(reqs)
+        s = rt.seq_bucket_for(max(len(r["prompt"]) for r in reqs))
+        tokens = np.zeros((b, s), "int32")
+        lengths = np.zeros((b,), "int32")
+        tables = np.array([sl.page_table for sl in slots], "int32")
+        for i, r in enumerate(reqs):
+            tokens[i, :len(r["prompt"])] = r["prompt"]
+            lengths[i] = len(r["prompt"])
+        keys = np.array([[0, r["seed"]] for r in reqs], "uint32")
+        temps = np.array([r["temperature"] for r in reqs], "float32")
+        first, _ = rt.prefill(tokens, lengths, tables, keys, temps)
+        cur, pos = first, lengths.copy()
+
+        def steps(n):
+            nonlocal cur, pos
+            for i in range(n):
+                cur = rt.step(cur, pos, tables, keys,
+                              np.full((b,), 1 + i, "int32"), temps)
+                pos = pos + 1
+
+        steps(3)
+        torch.cuda.synchronize()
+        a0, b0 = rd.rowdot.launches, pa.paged_attention.launches
+        t0 = time.perf_counter()
+        steps(PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        a_calls = (rd.rowdot.launches - a0) / PROFILE_STEPS
+        b_calls = (pa.paged_attention.launches - b0) / PROFILE_STEPS
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            steps(PROFILE_STEPS)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for sl in slots:
+            cache.free(sl)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def family(word):
+        return sum(e.self_device_time_total for e in kernels
+                   if word in e.key) / 1e3 / PROFILE_STEPS
+
+    out = dict(step_ms=wall, a_calls=a_calls, b_calls=b_calls)
+    if not busy:
+        log(f"[profile] decode step at batch {b}: {wall:.3f} ms wall; device "
+            f"time not measured (no CUDA events in the trace)")
+        return out
+    out.update(idle=1 - busy / prof_wall, a_ms=family("rowdot_kernel"),
+               b_ms=family("paged_attention_kernel"),
+               busy_ms=busy / PROFILE_STEPS)
+    log(f"[profile] decode step at batch {b} (GPT-2 small, positions "
+        f"{int(lengths.min())}-{int(lengths.max()) + PROFILE_STEPS + 3}): "
+        f"{wall:.3f} ms wall a step ({PROFILE_STEPS} steps), profiled "
+        f"{prof_wall / PROFILE_STEPS:.3f}, device busy {out['busy_ms']:.3f} "
+        f"ms, idle share {out['idle']:.3f}; rowdot {out['a_ms']:.3f} ms "
+        f"({a_calls:.0f} launches), paged attention {out['b_ms']:.3f} ms "
+        f"({b_calls:.0f} launches) a step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / PROFILE_STEPS:8.3f}"
+            f" ms/step x{e.count // PROFILE_STEPS:<4d} {e.key[:90]}")
+    return out
+
+
+def _decode_serve(mx, dec, tel, rd, pa, fa, card):
+    """The served run at GPT-2 small's width: 32 requests from 8 client
+    threads through ``DecodeSession``, then 4 of them solo; tokens/s,
+    TTFT, per-token latency, peak memory; a profile of 20 steps."""
+    net = _dec_model(mx, dec, "decode_base", 3, 0.02,
+                     units=GPT2["units"], num_layers=GPT2["num_layers"],
+                     num_heads=GPT2["num_heads"],
+                     vocab_size=GPT2["vocab_size"],
+                     max_length=GPT2["max_length"])
+    rng = np.random.RandomState(30)
+    reqs = _dec_requests(rng, SERVE_REQUESTS, *SERVE_PROMPTS,
+                         GPT2["vocab_size"], SERVE_NEW)
+    t0 = time.perf_counter()
+    sess = dec.DecodeSession(net, page_size=DEC_PAGE,
+                             batch_buckets=DEC_BUCKETS,
+                             seq_buckets=SERVE_SEQ)
+    warm_s = time.perf_counter() - t0
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tel.reset()
+        tel.enable()
+        rd.rowdot.launches = 0                   # the main path starts here
+        pa.paged_attention.launches = 0
+        fa.flash_attention.launches = 0
+        results = [None] * len(reqs)
+        errors = []
+
+        def client(idx):
+            try:
+                for i in idx:
+                    results[i] = sess.generate(timeout=DEC_TIMEOUT,
+                                               **reqs[i])
+            except Exception as e:           # noqa: BLE001 (reported)
+                errors.append(e)
+
+        threads = [threading.Thread(
+            target=client, args=(range(c, len(reqs), SERVE_CLIENTS),))
+            for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(DEC_TIMEOUT)
+        wall = time.perf_counter() - t0
+        launches = {"rowdot": rd.rowdot.launches,
+                    "paged_attention": pa.paged_attention.launches,
+                    "flash_attention": fa.flash_attention.launches}
+        snap = tel.snapshot()["counters"]      # the main path ends here
+        tel.disable()
+        peak = torch.cuda.max_memory_allocated()
+        check(not errors and all(r is not None for r in results),
+              f"served requests failed: {errors[:2]}")
+        for name, n in launches.items():
+            check(n > 0, f"{name} was not launched on the decode path")
+        check(not snap.get("decode.compile_miss"),
+              f"{snap.get('decode.compile_miss')} compile misses")
+        n_tok = sum(len(r.token_ids) for r in results)
+        check(n_tok == SERVE_REQUESTS * SERVE_NEW, f"{n_tok} tokens")
+        ttft = [r.ttft_ms for r in results]
+        per_tok = [(r.latency_ms - r.ttft_ms) / (len(r.token_ids) - 1)
+                   for r in results]
+        steps = int(snap.get("decode.steps", 0))
+        log(f"[decode] served GPT-2 small width (768 units, 12 layers, 12 "
+            f"heads, vocab 50257, seeded weights) on {card}: warm "
+            f"{warm_s:.1f} s; {SERVE_REQUESTS} requests from "
+            f"{SERVE_CLIENTS} threads, prompts {SERVE_PROMPTS[0]}-"
+            f"{SERVE_PROMPTS[1]}, {SERVE_NEW} new tokens, half greedy, half "
+            f"T 0.8: {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} output tokens/s; TTFT p50 "
+            f"{_percentile(ttft, 50):.1f} ms p99 {_percentile(ttft, 99):.1f}"
+            f" ms; per-token latency p50 {_percentile(per_tok, 50):.2f} ms "
+            f"p99 {_percentile(per_tok, 99):.2f} ms; {steps} steps, "
+            f"{int(snap.get('decode.prefills', 0))} prefills; peak "
+            f"{peak / 2**30:.3f} GiB; launches {launches} "
+            f"({launches['rowdot'] / max(steps, 1):.1f} rowdot and "
+            f"{launches['paged_attention'] / max(steps, 1):.1f} paged "
+            f"attention a step, prefill's included)")
+        sess.cache.drop_prefix_cache()
+        subset = [0, 5, 10, 15]
+        solo = _dec_solo(sess, [reqs[i] for i in subset])
+        check(solo == [results[i].token_ids for i in subset],
+              "served tokens differ from the same requests run solo")
+        log(f"[decode] requests {subset} run solo == served bit for bit")
+        prof = _decode_profile(sess.runtime, rd, pa,
+                               [dict(r, max_new_tokens=2 * PROFILE_STEPS + 8)
+                                for r in reqs[:8]])
+    finally:
+        sess.close(drain=False, timeout=60)
+    return launches, prof
+
+
+def phase_decode(card):
+    """Phase 27: decode serving (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.serving import decode as dec
+    rd = importlib.import_module("mxnet_tpu_torch.ops.rowdot")
+    pa = importlib.import_module("mxnet_tpu_torch.ops.paged_attention")
+    fa = importlib.import_module("mxnet_tpu_torch.ops.flash_attention")
+    t0 = time.perf_counter()
+    a = _decode_rowdot(rd, card)
+    b = _decode_attention(pa, dec, card)
+    _decode_contracts(mx, dec, tel, fa)
+    launches, prof = _decode_serve(mx, dec, tel, rd, pa, fa, card)
+    a["launches"] = launches["rowdot"]
+    b["launches"] = launches["paged_attention"]
+    for rec, calls, dev_ms in ((a, "a_calls", "a_ms"),
+                               (b, "b_calls", "b_ms")):
+        rec["launches_a_step"] = prof[calls]
+        rec["step_device_ms"] = prof.get(dev_ms)
+    log(f"[decode] phase 27 took {time.perf_counter() - t0:.1f} s")
+    return a, b, launches["flash_attention"], prof
+
+
 T_START = time.perf_counter()
 
 
@@ -4049,9 +4735,12 @@ def main():
     phase_gluon_examples(card)
     # slice 13: the data path
     bn["fed_launches"] = phase_data_path(bs, path, card, train_ms)
+    # slice 15: decode serving
+    dec_rowdot, dec_attention, record["decode_launches"], _ = \
+        phase_decode(card)
     log(f"[smoke] wall time {time.perf_counter() - T_START:.1f} s")
-    print(json.dumps({"kernels": [record, rtc_record, bn, bn_cl]}),
-          flush=True)
+    print(json.dumps({"kernels": [record, rtc_record, bn, bn_cl, dec_rowdot,
+                                  dec_attention]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,7 +15,9 @@ multi-precision SGD for fp16 weights.  The data path is ``mx.recordio``,
 ``mx.io``'s record iterators (threads, worker processes, a device
 augmentation prologue, staging on a side stream), ``mx.image`` and
 ``gluon.data``; its batches are host (CPU) NDArrays, pinned when a GPU is
-visible.  The package imports neither JAX nor
+visible.  Generative serving is ``mx.serving.decode``: a causal LM decoded
+with continuous batching over a paged KV cache, on the port's row-stable
+contraction and paged-attention kernels.  The package imports neither JAX nor
 ``mxnet_tpu``.  Entry points run on the GPU unless the caller asks for the
 CPU (``device="cpu"``, ``ctx=mx.cpu()`` or ``with mx.cpu():``).
 """

@@ -399,7 +399,7 @@ class ProcessDecodePool:
     """
 
     def __init__(self, spec, num_procs, ring_slots=None, respawn=False,
-                 timeout=None, decode_threads=1, tag="mxio"):
+                 timeout=None, decode_threads=1, tag="mxt_io"):
         import multiprocessing as mp
         if "fork" not in mp.get_all_start_methods():
             raise RuntimeError(

@@ -53,7 +53,7 @@ class ShmRing:
     inside task messages, so there is no cross-process allocator to corrupt.
     """
 
-    def __init__(self, n_slots, slot_bytes, tag="mxio"):
+    def __init__(self, n_slots, slot_bytes, tag="mxt_io"):
         from multiprocessing import shared_memory
         self.n_slots = int(n_slots)
         self.slot_bytes = int(slot_bytes)

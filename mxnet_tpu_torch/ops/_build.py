@@ -24,7 +24,9 @@ __all__ = ["load", "link", "bind", "nvcc_path", "BUILD_DIR", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "flash_attention.cu",
-           _PKG / "csrc" / "bn_stats.cu")
+           _PKG / "csrc" / "bn_stats.cu",
+           _PKG / "csrc" / "rowdot.cu",
+           _PKG / "csrc" / "paged_attention.cu")
 BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -79,6 +81,12 @@ def bind(lib):
     lib.mxt_bn_stats_plan.argtypes = bn + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p]
     lib.mxt_bn_stats_plan.restype = ctypes.c_int
+    lib.mxt_rowdot.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    lib.mxt_rowdot.restype = ctypes.c_int
+    lib.mxt_paged_attention.argtypes = [ctypes.c_void_p] * 10 + \
+        [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.mxt_paged_attention.restype = ctypes.c_int
     lib.mxt_error_string.argtypes = [ctypes.c_int]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib

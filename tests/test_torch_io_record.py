@@ -153,7 +153,7 @@ def test_process_path_equals_thread_path(rec_files, device_augment,
 
     _same(run(2), run(0))
     assert not [f for f in os.listdir("/dev/shm") if f.startswith(
-        f"mxio_{os.getpid()}_")]
+        f"mxt_io_{os.getpid()}_")]
 
 
 def test_device_augment_batches_match_jax(rec_files):
@@ -238,6 +238,39 @@ def test_stalled_pool_times_out(rec_files):
             os.kill(p.pid, signal.SIGCONT)
     finally:
         it.close()
+
+
+def _shm_names(prefix):
+    """This process's ``/dev/shm`` entries whose names start with
+    ``prefix`` (another test process's rings are not this test's)."""
+    if not os.path.isdir("/dev/shm"):
+        return []
+    return [f for f in os.listdir("/dev/shm")
+            if f.startswith(prefix) and f"_{os.getpid()}_" in f]
+
+
+def test_port_rings_do_not_use_the_reference_shm_tag(rec_files):
+    """The JAX package's leak check (``tests/test_io_pipeline.py``) fails
+    on any ``/dev/shm`` name starting with ``mxio``, so the port's rings
+    must never take that tag, or a port test holding a live ring makes the
+    reference's tests fail when both run at once."""
+    from mxnet_tpu_torch.io.shm_ring import ShmRing
+    path, _ = rec_files
+    ring = ShmRing(2, 4096)
+    it = mx.io.ImageRecordIter(path_imgrec=path, data_shape=SHAPE,
+                               batch_size=4, preprocess_processes=1,
+                               pipeline_timeout=TIMEOUT)
+    try:
+        it.next()
+        pool_ring = it._pipeline.ring
+        assert ring.name.startswith("mxt_io_")
+        assert pool_ring.name.startswith("mxt_io_")
+        assert _shm_names("mxt_io_"), "the live rings are not in /dev/shm"
+        assert not _shm_names("mxio"), _shm_names("mxio")
+    finally:
+        it.close()
+        ring.destroy()
+    assert not _shm_names("mxt_io_")
 
 
 def test_zero_copy_batches_alias_the_slot(rec_files):
