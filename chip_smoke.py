@@ -281,8 +281,11 @@ beside the backward's bound.  Phase 3 holds and times the forward at phase
    768 units, 12 heads, vocab 50257, page 16, a 1024-token table):
    ``rowdot`` (``csrc/rowdot.cu``) on every contraction of a step and on
    1024 prefill rows, the logits over ``embed.T`` without a copy, within
-   1e-5 of the largest magnitude, and its rows of N = 1..8 bitwise equal
-   to 1-row calls; the paged attention kernel (``csrc/paged_attention.cu``)
+   1e-5 of the largest magnitude, and its rows of N = 1..8, 40, 1024 and
+   4096 (its split and its tiled regime) bitwise equal to 1-row calls;
+   timed for a step with each shape warm in L2, for a step's 49 calls
+   with 12 layers' weights in turn (cold, as served), and for the (8,
+   512) bucket's prefill; the paged attention kernel (``csrc/paged_attention.cu``)
    over fp32, int8 and fp8 pools, step and verify (K = 4), D 64 and 32,
    within 1e-5, bitwise invariant to batch composition, physical page
    placement and the query count; each timed for one step beside its
@@ -1114,7 +1117,8 @@ def phase_resnet(card):
     from mxnet_tpu_torch.gluon.nn import Conv2D
     flops = []                 # 2 * outputs * (C_in / groups * kH * kW)
     hooks = [m.register_forward_hook(
-        lambda m, i, o: flops.append(2 * o.numel() * m.weight[0].numel()))
+        lambda m, i, o: flops.append(
+            2 * o.numel() * math.prod(m.weight.shape[1:])))
         for m in cpu_net.modules() if isinstance(m, Conv2D)]
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -3402,14 +3406,16 @@ def _finetune_net(files, ctx, head):
         net.add(imported, gluon.nn.Dense(FT_CLASSES, in_units=1000))
     net[1].initialize(ctx=ctx)
     with torch.no_grad():
-        net[1].weight.copy_(torch.from_numpy(head[0]))
-        net[1].bias.copy_(torch.from_numpy(head[1]))
+        net[1].weight.tensor().copy_(torch.from_numpy(head[0]))
+        net[1].bias.tensor().copy_(torch.from_numpy(head[1]))
     return net
 
 
 def _timed_steps(net, x, y, warm, timed):
     """``warm`` then ``timed`` SGD steps of the user's loop; returns
-    (mean losses, ms per timed step)."""
+    (mean losses, ms per timed step).  As in phase 9, a full collection
+    of what the earlier phases left runs after the warm steps, not in a
+    timed one."""
     from mxnet_tpu_torch import autograd, gluon
     trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
@@ -3422,6 +3428,7 @@ def _timed_steps(net, x, y, warm, timed):
         return loss.detach()
 
     losses = [step() for _ in range(warm)]
+    gc.collect()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses += [step() for _ in range(timed)]
@@ -4073,12 +4080,46 @@ def _rowdot_bound_ms(n, u, v):
                                    else "operations")
 
 
+def _rowdot_cold_step(rd, rng, units, hidden, vocab, layers, n=8):
+    """One decode step's contractions with each layer's own weights, read
+    in turn as the served loop reads them (``layers`` sets of 28.3 MB and
+    the 154 MB embedding: beyond the 50 MB L2, so every weight comes from
+    device memory), timed as a whole: (kernel ms, ``torch.matmul`` ms on
+    the same tensors, calls)."""
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype("float32")).cuda()
+    sets = [[(randn(u, v, scale=0.02), randn(v))
+             for u, v in ((units, 3 * units), (units, units),
+                          (units, hidden), (hidden, units))]
+            for _ in range(layers)]
+    embed_t = randn(vocab, units, scale=0.02).t()
+    xs = {units: randn(n, units), hidden: randn(n, hidden)}
+
+    def kernel_step():
+        for layer in sets:
+            for w, b in layer:
+                rd.rowdot(xs[w.shape[0]], w, b)
+        rd.rowdot(xs[units], embed_t)
+
+    def library_step():
+        for layer in sets:
+            for w, _ in layer:
+                torch.matmul(xs[w.shape[0]], w)
+        torch.matmul(xs[units], embed_t)
+    ms = device_ms(kernel_step, iters=5)
+    lib_ms = device_ms(library_step, iters=5)
+    return ms, lib_ms, 4 * layers + 1
+
+
 def _decode_rowdot(rd, card):
     """Kernel A against its plain version at GPT-2 small's decode shapes
     (N = 8) and a prefill shape (N = 1024), both orientations; its rows
-    bitwise equal to 1-row calls for N = 1..8; its time for one decode
-    step and for one prefill of the (8, 512) bucket (the contractions of
-    every layer on B x S rows; the logits take B rows)."""
+    bitwise equal to 1-row calls for N = 1..8, 40, 1024 and 4096 (the
+    split and the tiled regime); its time for one decode step, each shape
+    warm in L2 and the step's 49 calls cold (12 layers' weights in turn),
+    and for one prefill of the (8, 512) bucket (the contractions of every
+    layer on B x S rows; the logits take B rows)."""
     rng = np.random.RandomState(27)
     units, layers = GPT2["units"], GPT2["num_layers"]
     err, sums = 0.0, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -4091,7 +4132,8 @@ def _decode_rowdot(rd, card):
         w = w.t() if trans else w
         b = None if trans else torch.from_numpy(
             rng.randn(v).astype("float32")).cuda()
-        x = torch.from_numpy(rng.randn(1024, u).astype("float32")).cuda()
+        x = torch.from_numpy(rng.randn(PREFILL_ROWS, u).astype("float32")
+                             ).cuda()
         # the prefill runs every contraction but the logits on B x S rows
         for rows in (8,) if trans else (8, 1024):
             y = rd.rowdot(x[:rows], w, b)
@@ -4102,8 +4144,9 @@ def _decode_rowdot(rd, card):
                   f"version by {e:.3e} (max {scale:.3e})")
             err = max(err, e)
         solo = torch.cat([rd.rowdot(x[r:r + 1], w, b) for r in range(8)])
-        for rows in range(1, 9):
-            check(torch.equal(rd.rowdot(x[:rows], w, b), solo[:rows]),
+        for rows in (*range(1, 9), 40, 1024, PREFILL_ROWS):
+            k = min(rows, 8)
+            check(torch.equal(rd.rowdot(x[:rows], w, b)[:k], solo[:k]),
                   f"rowdot {name}: a {rows}-row call's rows differ from "
                   f"1-row calls")
         xs = x[:n].contiguous()
@@ -4115,7 +4158,8 @@ def _decode_rowdot(rd, card):
         log(f"[decode] rowdot {name} ({n}, {u}) x ({u}, {v})"
             f"{' (embed.T view)' if trans else ''}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f}, torch.matmul {lib_ms:.4f} (not "
-            f"batch-invariant), bound {bound:.4f} ({by}); x{calls} a step")
+            f"batch-invariant), bound {bound:.4f} ({by}); x{calls} a step, "
+            f"warm")
         sums["ms"] += calls * ms
         sums["plain_ms"] += calls * plain_ms
         sums["library_ms"] += calls * lib_ms
@@ -4125,11 +4169,9 @@ def _decode_rowdot(rd, card):
         sums["bytes_ms"] += calls * (n * u + u * v + v + n * v) * 4 \
             / HBM_BYTES_PER_S * 1e3
         if per_layer:
-            xp = torch.from_numpy(rng.randn(PREFILL_ROWS, u).astype(
-                "float32")).cuda()
-            p_ms = device_ms(lambda: rd.rowdot(xp, w, b), iters=5)
-            p_plain = device_ms(lambda: _rowdot_plain(rd, xp, w, b), iters=2)
-            p_lib = device_ms(lambda: torch.matmul(xp, w), iters=5)
+            p_ms = device_ms(lambda: rd.rowdot(x, w, b), iters=5)
+            p_plain = device_ms(lambda: _rowdot_plain(rd, x, w, b), iters=2)
+            p_lib = device_ms(lambda: torch.matmul(x, w), iters=5)
             p_bound, p_by = _rowdot_bound_ms(PREFILL_ROWS, u, v)
             log(f"[decode] rowdot {name} prefill ({PREFILL_ROWS}, {u}) x "
                 f"({u}, {v}): kernel {p_ms:.4f} ms, plain {p_plain:.4f}, "
@@ -4138,13 +4180,21 @@ def _decode_rowdot(rd, card):
             for key, val in (("ms", p_ms), ("plain_ms", p_plain),
                              ("library_ms", p_lib), ("bound_ms", p_bound)):
                 pre[key] += layers * val
+        del x, xs, w, b, solo
     bound_by = "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else \
         "operations"
+    cold_ms, cold_lib, calls = _rowdot_cold_step(
+        rd, rng, units, 4 * units, GPT2["vocab_size"], layers)
     log(f"[decode] rowdot, one GPT-2 small decode step at batch 8 "
-        f"({4 * layers + 1} calls): kernel {sums['ms']:.4f} ms, plain "
-        f"{sums['plain_ms']:.4f}, torch.matmul {sums['library_ms']:.4f}, "
-        f"bound {sums['bound_ms']:.4f} ({bound_by}); max |err| {err:.3e}; "
-        f"rows of N = 1..8 bitwise equal to 1-row calls; on {card}")
+        f"({calls} calls), each shape warm in L2: kernel {sums['ms']:.4f} "
+        f"ms, plain {sums['plain_ms']:.4f}, torch.matmul "
+        f"{sums['library_ms']:.4f}, bound {sums['bound_ms']:.4f} "
+        f"({bound_by}); max |err| {err:.3e}; rows of N = 1..8, 40, 1024 "
+        f"and {PREFILL_ROWS} bitwise equal to 1-row calls; on {card}")
+    log(f"[decode] rowdot, the same step cold ({layers} layers' weights in "
+        f"turn, as served): kernel {cold_ms:.4f} ms, torch.matmul "
+        f"{cold_lib:.4f} on the same tensors, bound "
+        f"{sums['bound_ms']:.4f} ({bound_by}); on {card}")
     log(f"[decode] rowdot, one GPT-2 small prefill of the (8, 512) bucket "
         f"({4 * layers} calls on {PREFILL_ROWS} rows): kernel "
         f"{pre['ms']:.4f} ms, plain {pre['plain_ms']:.4f}, torch.matmul "
@@ -4155,10 +4205,15 @@ def _decode_rowdot(rd, card):
             "replaces": "none: the port's own (the JAX decode model's "
                         "rowdot, mxnet_tpu/serving/decode/model.py:41, "
                         "is XLA)",
-            "shape": "one GPT-2 small decode step at batch 8",
+            "shape": "one GPT-2 small decode step at batch 8, each shape "
+                     "warm",
             "dtype": "float32", "max_abs_err": err, "ms": sums["ms"],
             "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
             "bound_by": bound_by, "library_ms": sums["library_ms"],
+            "cold": dict(ms=cold_ms, library_ms=cold_lib,
+                         bound_ms=sums["bound_ms"], bound_by=bound_by,
+                         shape=f"one GPT-2 small decode step at batch 8, "
+                               f"{layers} layers' weights in turn"),
             "prefill": dict(pre, shape=f"one GPT-2 small prefill of "
                             f"({PREFILL_ROWS}, 768) rows, 48 calls",
                             bound_by="operations")}
@@ -4532,7 +4587,9 @@ def _decode_profile(rt, rd, pa, reqs):
         log(f"[profile] decode step at batch {b}: {wall:.3f} ms wall; device "
             f"time not measured (no CUDA events in the trace)")
         return out
-    out.update(idle=1 - busy / prof_wall, a_ms=family("rowdot_kernel"),
+    # every kernel the rowdot entry may launch (rowdot_split_kernel,
+    # rowdot_tiled_kernel)
+    out.update(idle=1 - busy / prof_wall, a_ms=family("rowdot_"),
                b_ms=family("paged_attention_kernel"),
                busy_ms=busy / PROFILE_STEPS)
     log(f"[profile] decode step at batch {b} (GPT-2 small, positions "

@@ -260,29 +260,42 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
 
 class _Bridge(torch.autograd.Function):
     """Runs a :class:`Function`'s forward and backward as a node of torch's
-    graph."""
+    graph.  Torch sees tensors only; with ``wrap`` the user's methods see
+    NDArrays over them, as they were called with."""
 
     @staticmethod
-    def forward(ctx, func, *inputs):
-        ctx.func = func
+    def forward(ctx, func, wrap, *inputs):
+        ctx.func, ctx.wrap = func, wrap
         with pause():
-            outputs = func.forward(*inputs)
-        return tuple(outputs) if isinstance(outputs, list) else outputs
+            outputs = func.forward(*_rewrap(inputs, wrap))
+        single = not isinstance(outputs, (tuple, list))
+        outputs = tuple(_tensor(o) for o in ([outputs] if single
+                                             else outputs))
+        return outputs[0] if single else outputs
 
     @staticmethod
     def backward(ctx, *output_grads):
         with pause():
-            input_grads = ctx.func.backward(*output_grads)
-        if isinstance(input_grads, torch.Tensor):
+            input_grads = ctx.func.backward(*_rewrap(output_grads,
+                                                     ctx.wrap))
+        if _is_array(input_grads):
             input_grads = (input_grads,)
-        return (None, *input_grads)
+        return (None, None, *(_tensor(g) for g in input_grads))
+
+
+def _rewrap(tensors, wrap):
+    if not wrap:
+        return tensors
+    from .ndarray import NDArray
+    return tuple(None if t is None else NDArray(t) for t in tensors)
 
 
 class Function:
     """A differentiable function with a hand-written backward
     (``mxnet_tpu/autograd.py:385``): subclass, define ``forward(*inputs)``
     and ``backward(*output_grads)``, call an instance.  Both run outside
-    recording."""
+    recording.  Called on NDArrays, both take and return NDArrays and the
+    call returns NDArrays; called on tensors, tensors."""
 
     def forward(self, *inputs):
         raise NotImplementedError
@@ -298,5 +311,11 @@ class Function:
         return getattr(self, "_saved", ())
 
     def __call__(self, *inputs):
-        outputs = _Bridge.apply(self, *inputs)
-        return list(outputs) if isinstance(outputs, tuple) else outputs
+        nds = [_is_array(x) and not isinstance(x, torch.Tensor)
+               for x in inputs]
+        wrap = any(nds)
+        outputs = _Bridge.apply(self, wrap, *(
+            x._data if nd else x for x, nd in zip(inputs, nds)))
+        if isinstance(outputs, tuple):
+            return list(_rewrap(outputs, wrap))
+        return _rewrap((outputs,), wrap)[0]

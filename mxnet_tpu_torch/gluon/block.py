@@ -22,7 +22,10 @@ is derived from it: each registered tensor has one ``Parameter``
 user block's ``self.w = self.params.get("w", shape=...)`` registers the
 parameter's tensor with torch under ``w`` (a buffer when it takes no
 gradient by nature) and keeps the ``Parameter`` as the attribute, as in
-MXNet; the port's layers keep the tensor as the attribute.
+MXNet; the port's layers do the same (``self.weight`` is a ``Parameter``)
+and read the tensor in ``forward`` from torch's registration
+(``self._parameters["weight"]``), with no lookup through the
+``Parameter``.
 
 Calls.  A ``Block`` passes its arguments to ``forward`` as they come
 (NDArrays in, NDArrays out).  A ``HybridBlock`` runs on tensors: NDArray
@@ -226,10 +229,12 @@ class Block(nn.Module):
 
     def __setattr__(self, name, value):
         """A ``Parameter`` value registers its tensor with torch under
-        ``name`` and stays the attribute (``block.py:160-177``); anything
-        else goes to ``nn.Module``."""
+        ``name`` (unless :meth:`_new_param` already did) and stays the
+        attribute (``block.py:160-177``); anything else goes to
+        ``nn.Module``."""
         if isinstance(value, Parameter):
-            self._register_param(name, value)
+            if self._reg_params.get(name) is not value:
+                self._register_param(name, value)
             object.__setattr__(self, name, value)
             return
         super().__setattr__(name, value)
@@ -258,14 +263,17 @@ class Block(nn.Module):
 
     def _new_param(self, name, shape, dtype, device, init=None,
                    grad_req="write", differentiable=True, buffer=False):
-        """A layer's tensor ``name`` with its Gluon parameter
-        ``prefix + name``: the shared dict's when it has one, else a new
-        one (deferred where a width is 0)."""
+        """A layer's Gluon parameter ``prefix + name``, its tensor
+        registered with torch under ``name`` (made on ``device``, a buffer
+        when ``buffer``): the shared dict's when it has one, else a new one
+        (deferred where a width is 0).  The layer keeps the returned
+        ``Parameter`` as its attribute."""
         param = self._params.get(name, shape=shape, dtype=dtype, init=init,
                                  grad_req=grad_req,
                                  allow_deferred_init=True,
                                  differentiable=differentiable)
-        return self._register_param(name, param, device, buffer)
+        self._register_param(name, param, device, buffer)
+        return param
 
     def _sync_params(self):
         """Give every tensor registered on this block a ``Parameter``

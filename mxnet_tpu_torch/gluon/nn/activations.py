@@ -76,7 +76,8 @@ class PReLU(HybridBlock):
                                          device, init=alpha_initializer)
 
     def forward(self, x):
-        return elemwise.leaky_relu(x, self.alpha, act_type="prelu")
+        return elemwise.leaky_relu(x, self._parameters["alpha"],
+                                   act_type="prelu")
 
     def hybrid_forward(self, F, x, alpha):
         return F.LeakyReLU(x, alpha, act_type="prelu", name="fwd")

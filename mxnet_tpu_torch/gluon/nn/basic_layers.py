@@ -5,13 +5,15 @@ defaults; ``prefix`` and ``params`` (keyword only) name it and share
 parameters as in MXNet, ``dtype`` is a name (``"float32"``) or a
 ``torch.dtype``, and ``device`` (keyword only) is where the parameters are
 allocated at construction (without it they are placed by ``initialize``,
-``gluon/parameter.py``).  Each parameter is a tensor attribute
-(``self.weight``) with its Gluon ``Parameter`` under the prefixed name
-(``dense0_weight``); ``initialize`` fills it, with a layer's
-``*_initializer`` for its own.  ``Dense(in_units=0)``,
-``BatchNorm(in_channels=0)``, ``LayerNorm(in_channels=0)`` and
-``InstanceNorm(in_channels=0)`` defer their shapes to the first forward or
-to ``load_parameters``, as Gluon does.
+``gluon/parameter.py``).  Each parameter attribute (``self.weight``) is
+its Gluon ``Parameter``, under the prefixed name (``dense0_weight``), as in
+MXNet; its tensor is registered with torch under the attribute's name,
+and ``forward`` reads it there (``self._parameters["weight"]``).
+``initialize`` fills it, with a layer's ``*_initializer`` for its own.
+``Dense(in_units=0)``, ``BatchNorm(in_channels=0)``,
+``LayerNorm(in_channels=0)`` and ``InstanceNorm(in_channels=0)`` defer
+their shapes to the first forward or to ``load_parameters``, as Gluon
+does.
 
 Each layer runs a tensor ``forward`` eagerly and carries the reference's
 ``hybrid_forward`` (``F.FullyConnected``, ``F.BatchNorm``...), which
@@ -119,12 +121,14 @@ class Dense(HybridBlock):
             if use_bias else None
 
     def forward(self, x):
-        if is_deferred(self.weight):
+        w = self._parameters["weight"]
+        if is_deferred(w):
             in_units = math.prod(x.shape[1:]) if self._flatten \
                 else x.shape[-1]
-            self._reg_params["weight"]._finish_deferred_init(
-                (self._units, in_units), x.device)
-        x, w, b = amp_inputs("FullyConnected", x, self.weight, self.bias)
+            self.weight._finish_deferred_init((self._units, in_units),
+                                              x.device)
+        x, w, b = amp_inputs("FullyConnected", x, w,
+                             self._parameters.get("bias"))
         y = ops.fully_connected(x, w, b, self._flatten)
         return y if self._act_type is None else ops.activation(
             y, self._act_type)
@@ -138,7 +142,7 @@ class Dense(HybridBlock):
             y, act_type=self._act_type)
 
     def __repr__(self):
-        shape = self._reg_params["weight"].shape
+        shape = self.weight.shape
         return (f"Dense({shape[1] if shape[1] else None} -> {shape[0]}, "
                 f"{'linear' if self._act_type is None else self._act_type})")
 
@@ -185,7 +189,7 @@ class Embedding(HybridBlock):
                                       init=weight_initializer)
 
     def forward(self, x):
-        return ops.embedding(x, self.weight)
+        return ops.embedding(x, self._parameters["weight"])
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,
@@ -213,11 +217,11 @@ class _Norm(HybridBlock):
 
     def _materialize(self, names, channels, device):
         for name in names:
-            self._reg_params[name]._finish_deferred_init((channels,), device)
+            getattr(self, name)._finish_deferred_init((channels,), device)
 
     def __repr__(self):
         content = ", ".join(f"{k}={v!r}" for k, v in self._kwargs.items())
-        c = self._reg_params["gamma"].shape[0]
+        c = self.gamma.shape[0]
         return f"{type(self).__name__}({content}, in_channels={c or None})"
 
 
@@ -239,10 +243,12 @@ class LayerNorm(_Norm):
                           beta_initializer, torch_dtype(dtype), device)
 
     def forward(self, x):
-        if is_deferred(self.gamma):
+        params = self._parameters
+        if is_deferred(params["gamma"]):
             self._materialize(("gamma", "beta"), x.shape[self._axis],
                               x.device)
-        x, gamma, beta = amp_inputs("LayerNorm", x, self.gamma, self.beta)
+        x, gamma, beta = amp_inputs("LayerNorm", x, params["gamma"],
+                                    params["beta"])
         return ops.layer_norm(x, gamma, beta, self._axis, self._epsilon)
 
     def hybrid_forward(self, F, x, gamma, beta):
@@ -269,13 +275,15 @@ class InstanceNorm(_Norm):
                           beta_initializer, torch_dtype(dtype), device)
 
     def forward(self, x):
-        if is_deferred(self.gamma):
+        params = self._parameters
+        if is_deferred(params["gamma"]):
             self._materialize(("gamma", "beta"), x.shape[self._axis],
                               x.device)
+        gamma, beta = params["gamma"], params["beta"]
         if self._axis == 1:
-            return ops.instance_norm(x, self.gamma, self.beta, self._epsilon)
+            return ops.instance_norm(x, gamma, beta, self._epsilon)
         x = x.transpose(1, self._axis)
-        return ops.instance_norm(x, self.gamma, self.beta,
+        return ops.instance_norm(x, gamma, beta,
                                  self._epsilon).transpose(1, self._axis)
 
     def hybrid_forward(self, F, x, gamma, beta):
@@ -338,19 +346,22 @@ class BatchNorm(_Norm):
             else dtype
 
     def forward(self, x):
-        if is_deferred(self.gamma):
+        params, buffers = self._parameters, self._buffers
+        if is_deferred(params["gamma"]):
             self._materialize(("gamma", "beta", "running_mean",
                                "running_var"), x.shape[self._axis],
                               x.device)
         # the running statistics are auxiliary inputs: AMP never casts them
-        x, gamma, beta = amp_inputs("BatchNorm", x, self.gamma, self.beta)
-        args = (x, gamma, beta, self.running_mean, self.running_var,
-                self._epsilon, self._fix_gamma, self._axis)
+        x, gamma, beta = amp_inputs("BatchNorm", x, params["gamma"],
+                                    params["beta"])
+        mean_run, var_run = buffers["running_mean"], buffers["running_var"]
+        args = (x, gamma, beta, mean_run, var_run, self._epsilon,
+                self._fix_gamma, self._axis)
         if self._use_global_stats or not autograd.is_training():
             return ops.batch_norm(*args)
         out, mean, var = ops.batch_norm(*args, training=True)
-        ops.update_moving_stats(self.running_mean, self.running_var, mean,
-                                var, self._momentum)
+        ops.update_moving_stats(mean_run, var_run, mean, var,
+                                self._momentum)
         return out
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):

@@ -78,10 +78,12 @@ class _Conv(HybridBlock):
         return (self._channels,) + self._kernel + (ic,)
 
     def forward(self, x):
-        if is_deferred(self.weight):
-            self._reg_params["weight"]._finish_deferred_init(
+        w = self._parameters["weight"]
+        if is_deferred(w):
+            self.weight._finish_deferred_init(
                 self._weight_shape(x.shape[self._caxis]), x.device)
-        x, w, b = amp_inputs("Convolution", x, self.weight, self.bias)
+        x, w, b = amp_inputs("Convolution", x, w,
+                             self._parameters.get("bias"))
         y = ops.convolution(x, w, b, self._stride, self._pad, self._dilate,
                             self._groups, self._layout)
         return y if self.act is None else self.act(y)
@@ -97,7 +99,7 @@ class _Conv(HybridBlock):
 
     def __repr__(self):
         s = f"{type(self).__name__}("
-        shape = self._reg_params["weight"].shape
+        shape = self.weight.shape
         cin = shape[1] if self._caxis == 1 else shape[-1]
         s += f"{cin or None} -> {shape[0]}, kernel_size={self._kernel}, "
         s += f"stride={self._stride}"

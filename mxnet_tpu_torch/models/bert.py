@@ -213,8 +213,10 @@ class BERTModel(HybridBlock):
             picked = torch.gather(seq_out, 1, idx)          # (B, M, C)
             h = self.decoder_norm(self.decoder_act(
                 self.decoder_transform(picked)))
-            hd, w = amp_inputs("dot", h, self.word_embed.weight)
-            outputs.append(torch.matmul(hd, w.t()) + self.decoder_bias)
+            hd, w = amp_inputs("dot", h,
+                               self.word_embed._parameters["weight"])
+            outputs.append(torch.matmul(hd, w.t()) +
+                           self._parameters["decoder_bias"])
         if self.use_classifier and self.use_pooler:
             outputs.append(self.nsp_classifier(outputs[1]))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
@@ -227,7 +229,7 @@ class BERTClassifier(HybridBlock):
                  params=None):
         super().__init__(prefix=prefix, params=params)
         self.bert = bert
-        device = bert.word_embed.weight.device
+        device = bert.word_embed.weight.tensor().device
         with self.name_scope():
             self.classifier = nn.HybridSequential(prefix="cls_")
             self.classifier.add(nn.Dropout(dropout))

@@ -20,7 +20,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "link", "bind", "nvcc_path", "BUILD_DIR", "SOURCES"]
+import torch
+
+__all__ = ["load", "link", "bind", "nvcc_path", "raw_stream",
+           "stream_scratch", "BUILD_DIR", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "flash_attention.cu",
@@ -34,6 +37,12 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # where the CUDA toolkit installs itself when neither CUDA_HOME nor PATH
 # names it
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+# torch's current stream as a raw pointer, without building a Stream object
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or \
+    (lambda device: torch.cuda.current_stream(device).cuda_stream)
+# the streams whose scratch a kernel's cache keeps
+SCRATCH_STREAMS = 8
 
 _lock = threading.Lock()
 _lib = None
@@ -81,8 +90,9 @@ def bind(lib):
     lib.mxt_bn_stats_plan.argtypes = bn + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p]
     lib.mxt_bn_stats_plan.restype = ctypes.c_int
-    lib.mxt_rowdot.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
+    lib.mxt_rowdot.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p] + \
+        [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.mxt_rowdot.restype = ctypes.c_int
     lib.mxt_paged_attention.argtypes = [ctypes.c_void_p] * 10 + \
         [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -90,6 +100,28 @@ def bind(lib):
     lib.mxt_error_string.argtypes = [ctypes.c_int]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def stream_scratch(cache, device, stream, floats, tickets):
+    """A kernel's scratch on ``stream``, kept in ``cache`` (the kernel's
+    dict): (partials, tickets, partials pointer, tickets pointer, tickets
+    count), ``floats`` fp32 partials and at least ``tickets`` int32
+    tickets.  Allocated at the stream's first call (the tickets zeroed),
+    then reused by every call on it; the kernels leave the tickets at
+    zero.  Only the ``SCRATCH_STREAMS`` streams used last keep theirs: the
+    allocator hands a dropped buffer only to a later allocation on the
+    same stream, which runs after the kernels that used it."""
+    key = (device, stream)
+    s = cache.pop(key, None)
+    if s is None or s[1].numel() < tickets:
+        dev = torch.device("cuda", device)
+        s = (torch.empty(floats, dtype=torch.float32, device=dev),
+             torch.zeros(tickets, dtype=torch.int32, device=dev))
+        s = s + (s[0].data_ptr(), s[1].data_ptr(), s[1].numel())
+        if len(cache) >= SCRATCH_STREAMS:
+            del cache[next(iter(cache))]
+    cache[key] = s                     # the most recent last
+    return s
 
 
 def _check(returncode, cmd, out):

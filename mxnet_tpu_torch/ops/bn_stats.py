@@ -39,15 +39,11 @@ __all__ = ["bn_stats", "batch_stats", "layout", "FIRST"]
 FIRST = "first"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # scratch a (device, stream) keeps: partial sums (floats) and tickets,
-# 4.25 MB; the _SCRATCH_STREAMS streams used last keep theirs
+# 4.25 MB (``_build.stream_scratch``)
 _PARTIAL_CAP = 1 << 20
 _TICKET_CAP = 1 << 16
-_SCRATCH_STREAMS = 8
 _scratch = {}
 _lib = None
-# torch's current stream as a raw pointer, without building a Stream object
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or \
-    (lambda device: torch.cuda.current_stream(device).cuda_stream)
 
 
 def _first(x, axis):
@@ -132,27 +128,6 @@ def _check(x, pivot, axis):
     return kind
 
 
-def _stream_scratch(device, stream, channels):
-    """(partials, tickets) of ``stream``: allocated at its first call (the
-    tickets zeroed), then reused by every call on it; the kernel leaves
-    the tickets at zero.  Only the ``_SCRATCH_STREAMS`` streams used last
-    keep theirs: the allocator hands a dropped buffer only to a later
-    allocation on the same stream, which runs after the kernels that
-    used it."""
-    key = (device, stream)
-    s = _scratch.pop(key, None)
-    if s is None or s[1].numel() < channels:
-        dev = torch.device("cuda", device)
-        s = (torch.empty(_PARTIAL_CAP, dtype=torch.float32, device=dev),
-             torch.zeros(max(_TICKET_CAP, channels), dtype=torch.int32,
-                         device=dev))
-        s = s + (s[0].data_ptr(), s[1].data_ptr(), s[1].numel())
-        if len(_scratch) >= _SCRATCH_STREAMS:
-            del _scratch[next(iter(_scratch))]
-    _scratch[key] = s                  # the most recent last
-    return s
-
-
 def _launch(x, pivot, kind, axis, force=None):
     """One launch of the kernel on ``x``'s device and current stream;
     ``force`` = (splits, group, tickets, plan buffer) calls the entry that
@@ -168,8 +143,9 @@ def _launch(x, pivot, kind, axis, force=None):
     device = x.get_device()
     if _lib is None:
         _lib = _build.load()
-    stream = _raw_stream(device)
-    scratch = _stream_scratch(device, stream, c)
+    stream = _build.raw_stream(device)
+    scratch = _build.stream_scratch(_scratch, device, stream, _PARTIAL_CAP,
+                                    max(_TICKET_CAP, c))
     out = torch.empty(2, c, dtype=torch.float32, device=x.device)
     first = isinstance(pivot, str)
     args = (x.data_ptr(),

@@ -15,6 +15,13 @@ falls back.  On a CPU tensor it runs :func:`_reference`, the JAX function's
 broadcast-reduce, which the tests hold against the JAX package and
 ``chip_smoke.py`` holds the kernel against.  ``w`` may be given as a
 transposed view (``embed.t()``): the kernel reads it in place.
+
+One launch a call, in one of two regimes the C side chooses: up to 40
+rows (decode, verify) a split of each column tile's chunks of ``U``
+across blocks, folded in chunk order inside the launch; more rows
+(prefill) a register-tiled SGEMM.  The split regime's workspace and
+tickets are the wrapper's: allocated per (device, stream) at its first
+call and kept (the kernel leaves the tickets at zero).
 """
 from __future__ import annotations
 
@@ -42,17 +49,17 @@ def _orientation(w):
                      f"row-major matrix, got strides {w.stride()}")
 
 
-def _aligned(t):
-    return t.data_ptr() % 16 == 0
+# scratch a (device, stream) keeps: chunk partials of split column tiles
+# (floats) and their tickets, 8.25 MB (``_build.stream_scratch``)
+_PARTIAL_CAP = 1 << 21
+_TICKET_CAP = 1 << 16
+_scratch = {}
+_lib = None
 
 
-def rowdot(x, w, bias=None):
-    """``x (..., U) . w (U, V) (+ bias (V,)) -> (..., V)`` in fp32, each
-    output row's bits independent of the other rows.
-    ``rowdot.launches`` counts kernel launches (CPU calls are not
-    counted)."""
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return _reference(x, w, bias)
+def _check(x, w, bias):
+    """(x as (N, U), orientation) after checking devices, dtypes, shapes
+    and layouts; raises on anything the kernel does not take."""
     if x.device.type != "cuda" or w.device != x.device or \
             (bias is not None and bias.device != x.device):
         raise ValueError(f"x, w and bias must lie on one CUDA device or all "
@@ -64,28 +71,54 @@ def rowdot(x, w, bias=None):
     if w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
                          f"contract")
-    u, v = w.shape
+    v = w.shape[1]
     if bias is not None and (bias.shape != (v,) or not bias.is_contiguous()):
         raise ValueError(f"bias must be contiguous of shape ({v},), got "
                          f"{tuple(bias.shape)}")
     trans = _orientation(w)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, u)
+    x2 = x.reshape(-1, w.shape[0])
     if not x2.is_contiguous():
         raise ValueError("x must be contiguous")
-    n = x2.shape[0]
-    y = torch.empty(lead + (v,), dtype=torch.float32, device=x.device)
-    vec = int(u % 4 == 0 and _aligned(x2) and (not trans or _aligned(w)))
-    lib = _build.load()
-    rc = lib.mxt_rowdot(
+    return x2, trans
+
+
+def _launch(x, w, bias=None, plan=0, used=None):
+    """One launch on ``x``'s device and current stream.  ``plan`` 0 lets
+    the C side choose; ``k > 0`` asks for the split regime with ``k``
+    splits, -1 for the tiled regime (the GPU tests reach every route so).
+    ``used``, an int32 CPU tensor of 2, receives (regime: 0 split, 1
+    tiled; splits)."""
+    global _lib
+    x2, trans = _check(x, w, bias)
+    n, (u, v) = x2.shape[0], w.shape
+    y = torch.empty(x.shape[:-1] + (v,), dtype=torch.float32,
+                    device=x.device)
+    device = x.get_device()
+    if _lib is None:
+        _lib = _build.load()
+    stream = _build.raw_stream(device)
+    scratch = _build.stream_scratch(_scratch, device, stream, _PARTIAL_CAP,
+                                    _TICKET_CAP)
+    rc = _lib.mxt_rowdot(
         x2.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(), n, u, v,
-        trans, vec, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        trans, scratch[2], _PARTIAL_CAP, scratch[3], _TICKET_CAP, plan,
+        None if used is None else used.data_ptr(), device, stream)
     if rc != 0:
         raise RuntimeError(f"rowdot kernel launch failed: "
-                           f"{lib.mxt_error_string(rc).decode()} "
+                           f"{_lib.mxt_error_string(rc).decode()} "
                            f"(cudaError {rc})")
+    return y
+
+
+def rowdot(x, w, bias=None):
+    """``x (..., U) . w (U, V) (+ bias (V,)) -> (..., V)`` in fp32, each
+    output row's bits independent of the other rows.
+    ``rowdot.launches`` counts kernel launches (CPU calls are not
+    counted)."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return _reference(x, w, bias)
+    y = _launch(x, w, bias)
     rowdot.launches += 1
     return y
 

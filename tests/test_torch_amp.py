@@ -790,8 +790,8 @@ def _dense_pair():
     pnet = gluon.nn.Dense(4, in_units=8, device="cpu")
     pnet.initialize()
     with torch.no_grad():
-        pnet.weight.copy_(torch.from_numpy(w))
-        pnet.bias.zero_()
+        pnet.weight.tensor().copy_(torch.from_numpy(w))
+        pnet.bias.tensor().zero_()
     return jnet, pnet
 
 
@@ -807,7 +807,7 @@ def _scaled_step(pkg, net, trainer, x):
         loss = net(torch.from_numpy(x)).sum()
         with amp.scale_loss(loss, trainer) as scaled:
             ag.backward(scaled)
-    return _np(net.weight.grad), _np(net.bias.grad)
+    return _np(net.weight.tensor().grad), _np(net.bias.tensor().grad)
 
 
 def test_scale_loss_overflow_and_window_match_jax():
@@ -854,8 +854,8 @@ def test_scale_loss_overflow_and_window_match_jax():
     assert history[1][4] == 0.0 and history[0][4] > 1.0
     assert snap["counters"]["amp.overflow"] == 1
     assert snap["gauges"]["amp.loss_scale"] == 2.0 ** 16
-    np.testing.assert_allclose(_np(pnet.weight), _np(jnet.weight.data()),
-                               rtol=1e-5)
+    np.testing.assert_allclose(_np(pnet.weight.tensor()),
+                               _np(jnet.weight.data()), rtol=1e-5)
 
 
 def test_unscale_matches_jax():
@@ -872,9 +872,9 @@ def test_unscale_matches_jax():
     _scaled_step(pmx, pnet, ptr, x)
     jamp.unscale(jtr)
     pamp.unscale(ptr)
-    np.testing.assert_allclose(_np(pnet.weight.grad),
+    np.testing.assert_allclose(_np(pnet.weight.tensor().grad),
                                _np(jnet.weight.grad()), rtol=1e-6)
-    assert np.abs(_np(pnet.weight.grad)).max() < 10
+    assert np.abs(_np(pnet.weight.tensor().grad)).max() < 10
 
 
 _OVERFLOW_CASES = [("finite", None, None), ("inf", 1, np.inf),

@@ -118,7 +118,7 @@ def test_training_batchnorm_under_amp_runs_the_kernel_in_fp32(cuda):
                 y = layer(x.to(dev))
         finally:
             amp.deinit()
-        outs.append((y.float().cpu(), layer.running_mean.cpu(),
+        outs.append((y.float().cpu(), layer.running_mean.tensor().cpu(),
                      bs.bn_stats.launches, y.dtype))
     (yc, mc, nc, dc), (yg, mg, ng, dg) = outs
     assert dc == dg == torch.float32 and nc == 0 and ng == 1

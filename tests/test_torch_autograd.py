@@ -12,7 +12,9 @@ import torch
 from mxnet_tpu import autograd as jag
 from mxnet_tpu import nd as jnd
 
+import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd as ag
+from mxnet_tpu_torch import nd as pnd
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.ops import nn as ops
 
@@ -192,32 +194,73 @@ def test_higher_order_grad():
     _close(x.grad, jx.grad.asnumpy())
 
 
+class _JSquare(jag.Function):
+    def forward(self, x):
+        self.save_for_backward(x)
+        return x * x
+
+    def backward(self, dy):
+        x, = self.saved_tensors
+        return 2 * x * dy
+
+
+class _Square(ag.Function):
+    def forward(self, x):
+        assert not ag.is_recording()
+        self.save_for_backward(x)
+        return x * x
+
+    def backward(self, dy):
+        x, = self.saved_tensors
+        return 2 * x * dy
+
+
+def _nd_var(a):
+    x = pnd.array(np.asarray(a, dtype="float32"), ctx=mx.cpu())
+    x.attach_grad()
+    return x
+
+
 def test_custom_function():
-    class JSquare(jag.Function):
-        def forward(self, x):
-            self.save_for_backward(x)
-            return x * x
-
-        def backward(self, dy):
-            x, = self.saved_tensors
-            return 2 * x * dy
-
-    class Square(ag.Function):
-        def forward(self, x):
-            assert not ag.is_recording()
-            self.save_for_backward(x)
-            return x * x
-
-        def backward(self, dy):
-            x, = self.saved_tensors
-            return 2 * x * dy
-
-    jx, x = _jvar([1.0, 4.0]), _var([1.0, 4.0])
+    """A ``Function`` called on NDArrays inside ``record()`` takes and
+    returns NDArrays and records its node, as the reference's does
+    (``mxnet_tpu/autograd.py:385``)."""
+    jx, x = _jvar([1.0, 4.0]), _nd_var([1.0, 4.0])
     with jag.record():
-        jy = JSquare()(jx).sum()
+        jy = _JSquare()(jx).sum()
     jy.backward()
     with ag.record():
-        y = Square()(x).sum()
+        y = _Square()(x)
+        assert isinstance(y, pnd.NDArray)
+        y = y.sum()
+    y.backward()
+    _close(x.grad.data, jx.grad.asnumpy())
+
+
+def test_custom_function_square_at_three():
+    """``x * x`` at 3.0 through a ``Function`` on an NDArray: gradient
+    6.0 in both packages."""
+    jx, x = _jvar([3.0]), _nd_var([3.0])
+    with jag.record():
+        jy = _JSquare()(jx)
+    jy.backward()
+    with ag.record():
+        y = _Square()(x)
+    y.backward()
+    np.testing.assert_array_equal(jx.grad.asnumpy(), [6.0])
+    np.testing.assert_array_equal(x.grad.asnumpy(), [6.0])
+
+
+def test_custom_function_on_tensors():
+    """Raw tensors keep working: tensors in, tensors out."""
+    jx, x = _jvar([1.0, 4.0]), _var([1.0, 4.0])
+    with jag.record():
+        jy = _JSquare()(jx).sum()
+    jy.backward()
+    with ag.record():
+        y = _Square()(x)
+        assert isinstance(y, torch.Tensor)
+        y = y.sum()
     ag.backward(y)
     _close(x.grad, jx.grad.asnumpy())
 
@@ -290,24 +333,24 @@ def test_batchnorm_moving_stats_update():
     bn.train()
     y_infer = bn(torch.from_numpy(x))
     _close(y_infer, x / np.sqrt(1 + 1e-3))
-    assert torch.equal(bn.running_mean, torch.zeros(4))
+    assert torch.equal(bn.running_mean.tensor(), torch.zeros(4))
     with ag.record():
         y = bn(torch.from_numpy(x))
     _close(y, jy.asnumpy())
-    _close(bn.running_mean, jmm.asnumpy())
-    _close(bn.running_var, jmv.asnumpy())
-    assert not np.allclose(bn.running_mean.numpy(), 0)
+    _close(bn.running_mean.tensor(), jmm.asnumpy())
+    _close(bn.running_var.tensor(), jmv.asnumpy())
+    assert not np.allclose(bn.running_mean.tensor().numpy(), 0)
     bn.eval()                           # nn.Module mode does not enter
     with ag.record():
         bn(torch.from_numpy(x))
-    assert not np.allclose(bn.running_mean.numpy(), jmm.asnumpy())
+    assert not np.allclose(bn.running_mean.tensor().numpy(), jmm.asnumpy())
     # use_global_stats keeps the running statistics even when training
     frozen = nn.BatchNorm(use_global_stats=True, in_channels=4,
                           device="cpu")
     frozen.initialize()
     with ag.record():
         _close(frozen(torch.from_numpy(x)), x / np.sqrt(1 + 1e-5))
-    assert torch.equal(frozen.running_mean, torch.zeros(4))
+    assert torch.equal(frozen.running_mean.tensor(), torch.zeros(4))
 
 
 @pytest.mark.parametrize("fn", ["sin_x", "cube", "tanh_sq"])

@@ -107,9 +107,9 @@ def test_classifier_matches_jax():
     dense = [p for k, p in jc.collect_params().items()
              if k.startswith(jc.prefix)]
     with torch.no_grad():
-        tc.classifier[1].weight.copy_(torch.tensor(
+        tc.classifier[1].weight.tensor().copy_(torch.tensor(
             dense[0].data().asnumpy()))
-        tc.classifier[1].bias.copy_(torch.tensor(
+        tc.classifier[1].bias.tensor().copy_(torch.tensor(
             dense[1].data().asnumpy()))
         out = tc(torch.from_numpy(tokens), torch.from_numpy(segments))
     _close(out.numpy(), ref.asnumpy())

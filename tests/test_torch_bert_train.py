@@ -292,4 +292,4 @@ def test_decoder_bias_starts_at_zero():
     port = tbert.get_bert_model("bert_tiny", vocab_size=V, max_length=T,
                                 device="cpu")
     port.initialize(generator=torch.Generator().manual_seed(0))
-    assert not port.decoder_bias.any()
+    assert not port.decoder_bias.tensor().any()

@@ -341,11 +341,11 @@ def test_gluon_batchnorm_axis3_folds_moving_stats_like_jax():
             o = bn(torch.from_numpy(x))
         np.testing.assert_allclose(o.detach().numpy(), jo.asnumpy(), rtol=0,
                                    atol=1e-5)
-    assert bn.running_mean.shape == (6,)
-    np.testing.assert_allclose(bn.running_mean.numpy(),
+    assert bn.running_mean.tensor().shape == (6,)
+    np.testing.assert_allclose(bn.running_mean.tensor().numpy(),
                                jbn.running_mean.data().asnumpy(), rtol=0,
                                atol=1e-5)
-    np.testing.assert_allclose(bn.running_var.numpy(),
+    np.testing.assert_allclose(bn.running_var.tensor().numpy(),
                                jbn.running_var.data().asnumpy(), rtol=0,
                                atol=1e-5)
 

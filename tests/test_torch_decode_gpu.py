@@ -7,9 +7,12 @@ runs without them:
     python -m pytest --noconftest -q -m gpu tests/test_torch_decode_gpu.py
 
 - ``rowdot`` (``csrc/rowdot.cu``) against its plain version at GPT-2
-  small's widths, both orientations of ``w``, and its row invariance: row
-  ``r`` of an ``N``-row call equals a 1-row call bit for bit, N = 1..8
-  and 512;
+  small's widths and at lengths that are not multiples of 64 or of 4,
+  both orientations of ``w``, with and without bias, in both regimes
+  (split up to 40 rows, tiled above), one launch a call; its row
+  invariance: row ``r`` of an ``N``-row call equals a 1-row call bit for
+  bit, N = 2..8, 40, 1024 and 4096; every split and the tiled regime
+  forced on the same inputs give the same bits;
 - the paged attention kernel (``csrc/paged_attention.cu``) against its
   plain version over fp32, int8 and fp8 pools, step and verify (K = 4),
   and its invariance to batch composition, physical page placement and
@@ -48,11 +51,17 @@ def _randn(rng, *shape, scale=1.0, device="cuda"):
                             ).to(device)
 
 
-def _plain_rowdot(x, w, rows=64):
-    """The plain version over row chunks (the broadcast would hold
-    N x U x V floats at once)."""
+def _plain_rowdot(x, w):
+    """The plain version over row chunks of about 1.2 GB of broadcast."""
+    rows = max(1, int(3e8 // (x.shape[1] * w.shape[1])))
     return torch.cat([rd._reference(x[i:i + rows], w)
                       for i in range(0, x.shape[0], rows)])
+
+
+def _rowdot_case(rng, u, v, trans, bias):
+    w = _randn(rng, v, u, scale=0.02).t() if trans else \
+        _randn(rng, u, v, scale=0.02)
+    return w, (_randn(rng, v) if bias else None)
 
 
 def _held(got, want, tol, what):
@@ -62,45 +71,80 @@ def _held(got, want, tol, what):
 
 
 # ------------------------------------------------------------------- rowdot
+# U of 768 and 3072 (GPT-2 small), and lengths that are not multiples of
+# 64 or of 4 (the partial last chunk, the 4-byte copies)
+ROWDOT_SHAPES = [(768, 2304, False), (768, 768, False), (768, 3072, False),
+                 (3072, 768, False), (768, 50257, True), (256, 512, True),
+                 (30, 7, False), (33, 65, True), (100, 300, False),
+                 (100, 130, True)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("u, v, trans", [(768, 2304, False),
-                                         (768, 768, False),
-                                         (768, 3072, False),
-                                         (3072, 768, False),
-                                         (768, 50257, True),
-                                         (256, 512, True), (30, 7, False),
-                                         (33, 65, True)])
-def test_rowdot_matches_plain(cuda, u, v, trans):
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("u, v, trans", ROWDOT_SHAPES)
+def test_rowdot_matches_plain(cuda, u, v, trans, bias):
+    """Both regimes (split up to 40 rows, tiled above) against the plain
+    version, one launch a call."""
     rng = np.random.RandomState(u + v)
-    w = _randn(rng, v, u, scale=0.02).t() if trans else \
-        _randn(rng, u, v, scale=0.02)
-    b = _randn(rng, v)
-    for n in (1, 3, 8, 40):
+    w, b = _rowdot_case(rng, u, v, trans, bias)
+    for n in (1, 3, 8, 40, 41, 300):
         x = _randn(rng, n, u)
         before = rd.rowdot.launches
         y = rd.rowdot(x, w, b)
         torch.cuda.synchronize()
         assert rd.rowdot.launches == before + 1
-        _held(y, _plain_rowdot(x, w) + b, 1e-5, f"rowdot n={n} u={u} v={v}")
+        want = _plain_rowdot(x, w)
+        _held(y, want if b is None else want + b, 1e-5,
+              f"rowdot n={n} u={u} v={v}")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("u, v, trans", ROWDOT_SHAPES)
+def test_rowdot_rows_are_batch_invariant(cuda, u, v, trans, bias):
+    """Rows of N = 2..8 (split), 40 (split), 1024 and 4096 (tiled) calls
+    are bit for bit the 1-row calls (split), one launch each."""
+    rng = np.random.RandomState(1)
+    w, b = _rowdot_case(rng, u, v, trans, bias)
+    x = _randn(rng, 4096, u)
+    picks = list(range(8)) + [39, 100, 1023, 2049, 4095]
+    solo = {r: rd.rowdot(x[r:r + 1], w, b) for r in picks}
+    for n in (*range(2, 9), 40, 1024, 4096):
+        before = rd.rowdot.launches
+        y = rd.rowdot(x[:n], w, b)
+        assert rd.rowdot.launches == before + 1
+        for r in picks:
+            if r < n:
+                assert torch.equal(y[r:r + 1], solo[r]), (n, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 8, 40])
 @pytest.mark.parametrize("u, v, trans", [(768, 2304, False),
                                          (3072, 768, False),
                                          (768, 50257, True),
-                                         (256, 1024, False)])
-def test_rowdot_rows_are_batch_invariant(cuda, u, v, trans):
-    rng = np.random.RandomState(1)
-    w = _randn(rng, v, u, scale=0.02).t() if trans else \
-        _randn(rng, u, v, scale=0.02)
-    x = _randn(rng, 512, u)
-    solo = torch.cat([rd.rowdot(x[r:r + 1], w) for r in range(8)])
-    for n in range(1, 9):
-        assert torch.equal(rd.rowdot(x[:n], w), solo[:n]), n
-    big = rd.rowdot(x, w)
-    assert torch.equal(big[:8], solo)
-    for r in (100, 257, 511):
-        assert torch.equal(big[r:r + 1], rd.rowdot(x[r:r + 1], w)), r
+                                         (100, 130, True), (30, 7, False)])
+def test_rowdot_every_plan_is_bitwise_the_same(cuda, n, u, v, trans):
+    """Every split of the chunks (the fold by tickets across blocks) and
+    the tiled regime give the same bits, and the chosen plan is the one
+    reported; the tickets are left at zero."""
+    rng = np.random.RandomState(3)
+    w, b = _rowdot_case(rng, u, v, trans, True)
+    x = _randn(rng, n, u)
+    used = torch.zeros(2, dtype=torch.int32)
+    want = rd._launch(x, w, b, 0, used)
+    assert used[0].item() == 0                   # split regime
+    chunks = (u + 63) // 64
+    for plan in (1, 2, 3, 5, chunks, 2 * chunks, -1):
+        got = rd._launch(x, w, b, plan, used)
+        torch.cuda.synchronize()
+        if plan < 0:
+            assert used.tolist() == [1, 1]
+        else:
+            assert used[0].item() == 0
+            assert 1 <= used[1].item() <= min(plan, chunks)
+        assert torch.equal(got, want), plan
+    assert all(not t[1].any() for t in rd._scratch.values())
 
 
 # ----------------------------------------------------------- paged attention

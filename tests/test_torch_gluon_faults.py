@@ -14,6 +14,12 @@ CPU with numpy-seeded inputs.
 - ``x[::-1]``, ``x[:, ::-2]`` and ``x[1:0:-1]`` read and write as the
   reference's basic indexing does, and a reversed slice keeps its
   gradient under ``autograd.record()``.
+- A built-in layer's parameter attributes (``weight``, ``bias``,
+  ``gamma``, ``running_mean``...) are its Gluon ``Parameter``s, as in the
+  reference (``mxnet_tpu/gluon/nn/basic_layers.py:117``): ``data()``,
+  ``grad()``, ``set_data()``, ``list_ctx()``, ``zero_grad()``, deferred
+  access, ``cast``/``dtype``, and ``lr_mult``/``wd_mult``/``grad_req`` set
+  on the attribute reach the ``Trainer``.
 
 Values are compared exactly where both packages copy the same numbers, and
 within fp32 tolerances (stated per test) where they compute.
@@ -104,22 +110,22 @@ def test_initialize_twice_keeps_the_first_fill_like_jax():
     net, jnet = build(mx, device="cpu"), build(jmx)
     net.initialize(mx.init.Uniform(1.0))
     jnet.initialize(jmx.init.Uniform(1.0))
-    first = net[0].weight.detach().clone()
+    first = net[0].weight.tensor().detach().clone()
     jfirst = jnet[0].weight.data().asnumpy().copy()
     with pytest.warns(UserWarning, match="force_reinit"):
         net.initialize(mx.init.Constant(3.0))
     jnet.initialize(jmx.init.Constant(3.0))
-    assert torch.equal(net[0].weight, first)
+    assert torch.equal(net[0].weight.tensor(), first)
     np.testing.assert_array_equal(jnet[0].weight.data().asnumpy(), jfirst)
     net(torch.ones(5, 3))
     jnet(jmx.nd.ones((5, 3)))
-    np.testing.assert_array_equal(net[1].weight.detach().numpy(),
+    np.testing.assert_array_equal(net[1].weight.tensor().detach().numpy(),
                                   jnet[1].weight.data().asnumpy())
-    deferred = net[1].weight.detach().clone()
+    deferred = net[1].weight.tensor().detach().clone()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         net.initialize(mx.init.Constant(5.0))
-    assert torch.equal(net[1].weight, deferred)
+    assert torch.equal(net[1].weight.tensor(), deferred)
 
 
 # ------------------------------------------------------- load_parameters
@@ -154,7 +160,7 @@ def test_load_parameters_ctx_missing_extra_like_jax(tmp_path):
         small.load_parameters(str(path))
     jsmall.load_parameters(str(path), ignore_extra=True)
     small.load_parameters(str(path), ignore_extra=True)
-    np.testing.assert_array_equal(small[0].weight.detach().numpy(),
+    np.testing.assert_array_equal(small[0].weight.tensor().detach().numpy(),
                                   jsmall[0].weight.data().asnumpy())
 
     # the file lacks a layer: a larger net
@@ -254,7 +260,8 @@ def test_positional_and_dtype_string_construction_matches_jax():
         pl(torch.from_numpy(data))              # materialise deferred shapes
         for k, v in jl._collect_params_with_prefix().items():
             with torch.no_grad():
-                getattr(pl, k).copy_(torch.tensor(v.data().asnumpy()))
+                getattr(pl, k).tensor().copy_(
+                    torch.tensor(v.data().asnumpy()))
         with autograd.record():                 # BatchNorm: batch stats
             out = pl(torch.from_numpy(data))
         with jmx.autograd.record():
@@ -286,7 +293,7 @@ def test_per_parameter_initializers_match_jax():
         pl.initialize(mx.init.Constant(7.0), ctx=mx.cpu())
         for k, v in jl._collect_params_with_prefix().items():
             np.testing.assert_array_equal(
-                getattr(pl, k).detach().numpy(), v.data().asnumpy(),
+                getattr(pl, k).tensor().detach().numpy(), v.data().asnumpy(),
                 err_msg=f"{type(pl).__name__}.{k}")
 
 
@@ -347,3 +354,166 @@ def test_reversed_slice_keeps_its_gradient_like_jax():
     with mx.cpu():
         got = run(mx, mx.nd)
     np.testing.assert_array_equal(got, run(jmx, jmx.nd))
+
+
+# ---------------------------------------- a layer's attributes: Parameters
+def _layers(pkg, **kw):
+    nn = pkg.gluon.nn
+    return {
+        "Dense": (nn.Dense(3, in_units=2, **kw), ("weight", "bias")),
+        "Embedding": (nn.Embedding(5, 3, **kw), ("weight",)),
+        "LayerNorm": (nn.LayerNorm(in_channels=3, **kw), ("gamma", "beta")),
+        "InstanceNorm": (nn.InstanceNorm(in_channels=3, **kw),
+                         ("gamma", "beta")),
+        "BatchNorm": (nn.BatchNorm(in_channels=3, **kw),
+                      ("gamma", "beta", "running_mean", "running_var")),
+        "Conv1D": (nn.Conv1D(4, 3, in_channels=2, **kw), ("weight", "bias")),
+        "Conv2D": (nn.Conv2D(4, 3, in_channels=2, use_bias=False, **kw),
+                   ("weight",)),
+        "Conv3D": (nn.Conv3D(4, 2, in_channels=2, **kw), ("weight", "bias")),
+        "PReLU": (nn.PReLU(**kw), ("alpha",)),
+    }
+
+
+@pytest.mark.parametrize("name", ["BatchNorm", "Conv1D", "Conv2D", "Conv3D",
+                                  "Dense", "Embedding", "InstanceNorm",
+                                  "LayerNorm", "PReLU"])
+def test_layer_attributes_are_parameters_like_jax(name):
+    """Each attribute is the Parameter ``collect_params()`` holds under the
+    reference's prefixed name, with the JAX package's shape; its value is
+    the tensor torch registered, so ``state_dict`` still holds it."""
+    layer, attrs = _layers(mx, device="cpu")[name]
+    jlayer, _ = _layers(jmx)[name]
+    params = layer.collect_params()
+    jparams = jlayer.collect_params()
+    for attr in attrs:
+        p, jp = getattr(layer, attr), getattr(jlayer, attr)
+        assert isinstance(p, gluon.Parameter), (name, attr)
+        assert isinstance(jp, jgluon.Parameter), (name, attr)
+        assert params[p.name] is p
+        assert p.name[len(layer.prefix):] == jp.name[len(jlayer.prefix):]
+        assert p.shape == jp.shape, (name, attr)
+    layer.initialize()
+    state = layer.state_dict()
+    for attr in attrs:
+        assert getattr(layer, attr).tensor() is state[attr] or \
+            torch.equal(getattr(layer, attr).tensor(), state[attr])
+
+
+def test_bert_decoder_bias_is_a_parameter():
+    """BERT's masked-LM ``decoder_bias`` is a Parameter, as the reference's
+    ``params.get`` makes it (``mxnet_tpu/models/bert.py:200``)."""
+    from mxnet_tpu_torch.models import bert
+    net = bert.get_bert_model("bert_tiny", vocab_size=11, max_length=8,
+                              device="cpu")
+    assert isinstance(net.decoder_bias, gluon.Parameter)
+    assert net.decoder_bias.shape == (11,)
+    assert net.decoder_bias.name in net.collect_params()
+
+
+def _sgd_step(pkg, nd, attrs, use_bias):
+    """One SGD step (lr 0.1, wd 0.5) of ``Dense(1, in_units=2)`` on
+    all-ones data, ``attrs`` {(parameter, setting): value} set on the
+    layer's attributes; returns the weight and bias after it."""
+    net = pkg.gluon.nn.Dense(1, in_units=2, use_bias=use_bias)
+    net.initialize()
+    net.weight.set_data(nd.array([[0.5, -0.25]]))
+    if use_bias:
+        net.bias.set_data(nd.array([0.75]))
+    for (param, key), value in attrs.items():
+        setattr(getattr(net, param), key, value)
+    trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1, "wd": 0.5})
+    with pkg.autograd.record():
+        loss = net(nd.ones((4, 2))).sum()
+    loss.backward()
+    trainer.step(1)
+    return (net.weight.data().asnumpy(),
+            net.bias.data().asnumpy() if use_bias else None)
+
+
+@pytest.mark.parametrize("attrs, use_bias", [
+    ({("weight", "lr_mult"): 2.0}, False),
+    ({("weight", "wd_mult"): 0.25}, True),
+    ({("bias", "lr_mult"): 3.0, ("weight", "wd_mult"): 0.0}, True),
+    ({("bias", "grad_req"): "null"}, True),
+], ids=["lr_mult", "wd_mult", "both", "grad_req_null"])
+def test_settings_on_the_attribute_reach_the_trainer_like_jax(attrs,
+                                                               use_bias):
+    """``lr_mult``, ``wd_mult`` and ``grad_req`` set on ``layer.weight`` /
+    ``layer.bias`` change the step as they do in the JAX package; a bias
+    with ``grad_req='null'`` keeps its value."""
+    with mx.cpu():
+        got = _sgd_step(mx, mx.nd, attrs, use_bias)
+    want = _sgd_step(jmx, jmx.nd, attrs, use_bias)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=ATOL)
+    if use_bias:
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=ATOL)
+    if ("bias", "grad_req") in attrs:
+        np.testing.assert_array_equal(got[1], [0.75])
+    # the step moved the weight away from its start
+    assert not np.allclose(got[0], [[0.5, -0.25]])
+
+
+def test_parameter_methods_on_the_attribute_like_jax():
+    """``data``/``grad``/``set_data``/``list_ctx``/``zero_grad`` on
+    ``layer.weight``: values and gradients as the JAX package gives."""
+    def run(pkg, nd, ctx):
+        net = pkg.gluon.nn.Dense(2, in_units=3)
+        net.initialize(ctx=ctx)
+        w = np.arange(6, dtype="float32").reshape(2, 3) / 10
+        net.weight.set_data(nd.array(w))
+        assert net.weight.list_ctx() == [ctx]
+        x = nd.array(np.random.RandomState(0).randn(4, 3).astype("float32"))
+        with pkg.autograd.record():
+            loss = (net(x) * net(x)).sum()
+        loss.backward()
+        grad = net.weight.grad().asnumpy().copy()
+        data = net.weight.data().asnumpy().copy()
+        net.weight.zero_grad()
+        return data, grad, net.weight.grad().asnumpy()
+    with mx.cpu():
+        got = run(mx, mx.nd, mx.cpu(0))
+    want = run(jmx, jmx.nd, jmx.cpu(0))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=ATOL)
+    assert np.abs(got[1]).sum() > 0
+    np.testing.assert_array_equal(got[2], want[2])
+    assert not got[2].any()
+
+
+def test_deferred_attribute_access_raises_like_jax():
+    """``layer.weight.data()`` before the first forward gives the width
+    raises ``DeferredInitializationError`` in both packages; after it the
+    shape is known."""
+    from mxnet_tpu.gluon.parameter import DeferredInitializationError as JD
+    from mxnet_tpu_torch.gluon.parameter import DeferredInitializationError
+    net = gluon.nn.Dense(3, device="cpu")
+    jnet = jgluon.nn.Dense(3)
+    net.initialize()
+    jnet.initialize()
+    with pytest.raises(JD):
+        jnet.weight.data()
+    with pytest.raises(DeferredInitializationError):
+        net.weight.data()
+    net(torch.ones(2, 5))
+    jnet(jmx.nd.ones((2, 5)))
+    assert net.weight.shape == jnet.weight.shape == (3, 5)
+
+
+def test_cast_and_dtype_on_the_attribute_like_jax():
+    """``cast("float16")`` gives ``layer.weight`` the dtype the JAX package
+    reports, its data and the forward's output follow
+    (``tests/test_gluon_contracts2.py``'s contract)."""
+    net = gluon.nn.Dense(3, in_units=2, device="cpu")
+    jnet = jgluon.nn.Dense(3, in_units=2)
+    net.initialize()
+    jnet.initialize()
+    assert net.weight.dtype == jnet.weight.dtype == "float32"
+    net.cast("float16")
+    jnet.cast("float16")
+    assert net.weight.dtype == jnet.weight.dtype == "float16"
+    assert net.weight.data().dtype == jnet.weight.data().dtype == np.float16
+    with mx.cpu():
+        out = net(mx.nd.ones((2, 2), dtype="float16"))
+    assert out.dtype == jnet(jmx.nd.ones((2, 2), dtype="float16")).dtype

@@ -87,8 +87,8 @@ def _gluon_under_head(path, ctx, head):
         net.add(body, gluon.nn.Dense(cs.FT_CLASSES, in_units=1000))
     net[1].initialize(ctx=ctx)
     with torch.no_grad():
-        net[1].weight.copy_(torch.from_numpy(head[0]))
-        net[1].bias.copy_(torch.from_numpy(head[1]))
+        net[1].weight.tensor().copy_(torch.from_numpy(head[0]))
+        net[1].bias.tensor().copy_(torch.from_numpy(head[1]))
     return net
 
 

@@ -179,7 +179,7 @@ def test_gluon_conv2d_nhwc_weight_shape_and_gradient():
     ag.backward(loss)
     np.testing.assert_allclose(ty.detach().numpy(), jy.asnumpy(), RTOL,
                                ATOL * 5)
-    _grad_close(net.weight.grad, jnet.weight.grad().asnumpy())
+    _grad_close(net.weight.tensor().grad, jnet.weight.grad().asnumpy())
 
 
 def test_gluon_conv1d_conv3d_and_pools_take_layouts():

@@ -243,8 +243,8 @@ def test_block_cast_matches_jax(tmp_path):
                                atol=2e-2 * np.abs(_np(j)).max())
     with ag.record():
         ag.backward(pnet(torch.from_numpy(x).half()).float().sum())
-    assert pnet.output.weight.grad.dtype == torch.float16
-    assert pnet.features[1].gamma.grad.dtype == torch.float32
+    assert pnet.output.weight.tensor().grad.dtype == torch.float16
+    assert pnet.features[1].gamma.tensor().grad.dtype == torch.float32
 
 
 def test_parameter_cast_keeps_the_tensor_and_casts_the_grad():
@@ -380,7 +380,8 @@ def test_load_from_gluon_casts_bf16_on_arrival(tmp_path):
     pnet = gluon.nn.Dense(6, in_units=4, device="cpu")
     pnet.cast("bfloat16")
     convert.load_from_gluon(jnet, pnet, tmp_path / "d.params")
-    assert pnet.weight.dtype == torch.bfloat16
-    np.testing.assert_array_equal(_np(pnet.weight), _np(jnet.weight.data()))
+    assert pnet.weight.tensor().dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(pnet.weight.tensor()),
+                                  _np(jnet.weight.data()))
     with pytest.raises(TypeError, match="file has"):
         pnet.load_parameters(str(tmp_path / "d.params"))

@@ -401,7 +401,7 @@ def test_blocks_take_and_return_ndarrays():
         out = loss(net(x), mx.nd.zeros((2, 3), ctx=mx.cpu()))
     assert isinstance(out, mx.nd.NDArray)
     out.backward()
-    assert net.weight.grad is not None
+    assert net.weight.tensor().grad is not None
     with pytest.raises(ValueError, match="one device"):
         net.initialize(ctx=[mx.cpu(), mx.cpu()])
 

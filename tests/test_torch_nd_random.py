@@ -122,7 +122,8 @@ def test_seed_fixes_dropout_and_initializer():
         with mx.autograd.record():
             out = drop(net(torch.ones(2, 3)))
         nd_draw = mx.nd.random.normal(shape=(3,), ctx=mx.cpu()).asnumpy()
-        return net.weight.detach().numpy().copy(), out.detach().numpy(), \
+        return net.weight.tensor().detach().numpy().copy(), \
+            out.detach().numpy(), \
             nd_draw
     first, second = run(), run()
     for a, b in zip(first, second):

@@ -185,21 +185,22 @@ def test_deferred_shapes_materialise_on_first_forward_and_from_file(
         tmp_path):
     net = get_model("resnet50_v1", classes=10, device="cpu").eval()
     stem = net.features[0]
-    assert is_deferred(stem.weight)
+    assert is_deferred(stem.weight._data)
     net.initialize(generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
         net(torch.zeros(1, 3, 32, 32))
     assert not any(is_deferred(t) for t in
                    net._collect_params_with_prefix().values())
     assert tuple(stem.weight.shape) == (64, 3, 7, 7)
-    assert not stem.weight.is_inference() and stem.weight.requires_grad
+    w = stem.weight.tensor()
+    assert not w.is_inference() and w.requires_grad
     # initialize() reached the deferred parameters when they materialised
-    w = stem.weight.detach()
+    w = w.detach()
     assert 0 < w.abs().max() <= 0.07
     bn = net.features[4][0].body[1]            # a deferred BatchNorm
-    assert torch.equal(bn.running_var, torch.ones(64))
-    assert torch.equal(bn.running_mean, torch.zeros(64))
-    assert torch.equal(bn.gamma.detach(), torch.ones(64))
+    assert torch.equal(bn.running_var.tensor(), torch.ones(64))
+    assert torch.equal(bn.running_mean.tensor(), torch.zeros(64))
+    assert torch.equal(bn.gamma.tensor().detach(), torch.ones(64))
     net.save_parameters(str(tmp_path / "r50.params"))
 
     fresh = get_model("resnet50_v1", classes=10, device="cpu").eval()
@@ -214,7 +215,8 @@ def test_deferred_shapes_materialise_on_first_forward_and_from_file(
 def test_deferred_layers_and_load_errors(tmp_path):
     dense = nn.Dense(5, device="cpu")
     bn = nn.BatchNorm(device="cpu").eval()
-    assert is_deferred(dense.weight) and is_deferred(bn.running_mean)
+    assert is_deferred(dense.weight._data) and \
+        is_deferred(bn.running_mean._data)
     assert dense(torch.ones(2, 3, 4)).shape == (2, 5)
     assert tuple(dense.weight.shape) == (5, 12)
     bn.initialize()

@@ -324,8 +324,8 @@ def test_collect_params_names_reqs_and_persistent_settings():
     assert net.collect_params()[out] is params[out]
     with pytest.raises(RuntimeError, match="grad_req='null'"):
         params["resnetv10_batchnorm0_running_mean"].grad()
-    before = net.features[1].running_mean.clone()
-    w_out = net.output.weight.detach().clone()
+    before = net.features[1].running_mean.tensor().clone()
+    w_out = net.output.weight.tensor().detach().clone()
     trainer = gluon.Trainer(params, "sgd", {"learning_rate": 0.1,
                                             "momentum": 0.9})
     with ag.record():
@@ -333,9 +333,10 @@ def test_collect_params_names_reqs_and_persistent_settings():
             net(torch.randn(2, 3, 32, 32)), torch.tensor([1.0, 2.0]))
     ag.backward(loss)
     trainer.step(2)
-    after = net.features[1].running_mean
+    after = net.features[1].running_mean.tensor()
     assert not torch.equal(before, after)      # moved by the forward only
-    torch.testing.assert_close(net.output.weight.detach(), w_out)   # lr 0
+    torch.testing.assert_close(net.output.weight.tensor().detach(),
+                               w_out)   # lr 0
 
 
 def test_grad_req_add_and_null_on_a_block():
@@ -349,13 +350,16 @@ def test_grad_req_add_and_null_on_a_block():
         with ag.record():
             y = dense(x)
         ag.backward(y)
-    torch.testing.assert_close(dense.weight.grad, torch.full((2, 3), 8.0))
-    assert dense.bias.grad is None and not dense.bias.requires_grad
+    torch.testing.assert_close(dense.weight.tensor().grad,
+                               torch.full((2, 3), 8.0))
+    bias = dense.bias.tensor()
+    assert bias.grad is None and not bias.requires_grad
     params["fc_weight"].grad_req = "write"
     with ag.record():
         y = dense(x)
     ag.backward(y)
-    torch.testing.assert_close(dense.weight.grad, torch.full((2, 3), 4.0))
+    torch.testing.assert_close(dense.weight.tensor().grad,
+                               torch.full((2, 3), 4.0))
 
 
 # --------------------------------------------------------- the whole slice
@@ -729,8 +733,8 @@ def test_dense_activation_matches_jax(act):
     jd.bias.set_data(jmx.nd.array(b))
     td = gluon.nn.Dense(3, activation=act, in_units=5, device="cpu")
     with torch.no_grad():
-        td.weight.copy_(_t(w))
-        td.bias.copy_(_t(b))
+        td.weight.tensor().copy_(_t(w))
+        td.bias.tensor().copy_(_t(b))
         out = td(_t(x))
     np.testing.assert_allclose(out.numpy(), jd(jmx.nd.array(x)).asnumpy(),
                                rtol=0, atol=ATOL)
@@ -754,7 +758,7 @@ def test_dropped_block_is_freed_without_the_collector():
     params = net.collect_params()
     first = net.features[0]._reg_params["weight"].name
     trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-3})
-    start = net.features[0].weight.detach().clone()
+    start = net.features[0].weight.tensor().detach().clone()
     gc.disable()
     try:
         for _ in range(2):
@@ -762,7 +766,7 @@ def test_dropped_block_is_freed_without_the_collector():
                 loss = net(x).sum()
             ag.backward(loss)
             trainer.step(2)
-        weight = net.features[0].weight
+        weight = net.features[0].weight.tensor()
         assert params[first].tensor() is weight
         assert trainer._updater.states         # Adam's states exist
         moved = weight.detach().clone()
