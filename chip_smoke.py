@@ -285,10 +285,13 @@ beside the backward's bound.  Phase 3 holds and times the forward at phase
    4096 (its split and its tiled regime) bitwise equal to 1-row calls;
    timed for a step with each shape warm in L2, for a step's 49 calls
    with 12 layers' weights in turn (cold, as served), and for the (8,
-   512) bucket's prefill; the paged attention kernel (``csrc/paged_attention.cu``)
-   over fp32, int8 and fp8 pools, step and verify (K = 4), D 64 and 32,
-   within 1e-5, bitwise invariant to batch composition, physical page
-   placement and the query count; each timed for one step beside its
+   512) bucket's prefill; the paged attention kernel
+   (``csrc/paged_attention.cu``, 64-key chunks folded in chunk order) over
+   fp32, int8 and fp8 pools, step and verify (K = 4), D 64 and 32, within
+   1e-5, bitwise invariant to a row alone, a permuted batch, moved pages
+   and the verify's query j against the step at p + j; timed for a step's
+   12 layers and a verify's, each pool kind, warm (one layer's pools) and
+   cold (12 layers' pools in turn, as served); each kernel beside its
    plain version, its library yardstick (``torch.matmul``, not
    batch-invariant; ``_kv_gather`` + ``F.scaled_dot_product_attention``)
    and its bound.  (b) ``decode_base`` (vocab 512, seeded weights) on the
@@ -4219,13 +4222,22 @@ def _decode_rowdot(rd, card):
                             bound_by="operations")}
 
 
-def _pa_case(dec, kind, rng, b, heads, d, n_tab, pages):
-    k = torch.from_numpy(rng.randn(pages, DEC_PAGE, heads, d)
-                         .astype("float32")).cuda()
-    v = torch.from_numpy(rng.randn(pages, DEC_PAGE, heads, d)
-                         .astype("float32")).cuda()
-    perm = rng.permutation(np.arange(1, pages))[:b * n_tab]
-    tables = torch.from_numpy(perm.reshape(b, n_tab).astype("int32")).cuda()
+PA_POSITIONS = (200, 300, 400, 500, 550, 600, 620, 639)   # phase 27 (a)
+PA_KINDS = ("fp32", "int8", "fp8")
+PA_SIDECAR_BYTES = {"fp32": 0, "int8": 8, "fp8": 4}     # a key, a pool
+
+
+def _pa_case(dec, kind, rng, b, heads, d, n_tab, pages, tables=None):
+    """One layer's pools (every entry drawn on the card, N(0, 1), from a
+    seed ``rng`` gives) and page tables giving each row its own pages (or
+    ``tables``): (k, v, quant, tables)."""
+    g = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+    k = torch.randn(pages, DEC_PAGE, heads, d, generator=g, device="cuda")
+    v = torch.randn(pages, DEC_PAGE, heads, d, generator=g, device="cuda")
+    if tables is None:
+        perm = rng.permutation(np.arange(1, pages))[:b * n_tab]
+        tables = torch.from_numpy(perm.reshape(b, n_tab).astype("int32")
+                                  ).cuda()
     if kind == "fp32":
         return k, v, None, tables
     if kind == "int8":
@@ -4237,16 +4249,122 @@ def _pa_case(dec, kind, rng, b, heads, d, n_tab, pages):
     return kq, vq, [ks, vs], tables
 
 
-def _sdpa_on_gathered(pa, q, k, v, tables, positions):
-    """The library yardstick: ``_kv_gather`` plus
-    ``F.scaled_dot_product_attention`` over the gathered context."""
-    kg, vg = pa.gather_pages(k, v, tables)
-    lctx = kg.shape[1]
-    mask = torch.arange(lctx, device=q.device)[None, :] <= \
-        positions.long()[:, None]
+def _sdpa_on_gathered(pa, q, k, v, tables, positions, quant=None):
+    """The library yardstick: ``_kv_gather`` (dequantising) plus
+    ``F.scaled_dot_product_attention`` over the gathered context, query
+    ``j`` masked past ``positions + j``; ``(B, Q, H, D)``."""
+    kg, vg = pa.gather_pages(k, v, tables, quant)
+    nq, lctx = q.shape[1], kg.shape[1]
+    seen = positions.long()[:, None] + torch.arange(nq, device=q.device)
+    mask = torch.arange(lctx, device=q.device)[None, None, :] <= \
+        seen[:, :, None]
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
-        attn_mask=mask[:, None, None, :], scale=1.0)
+        attn_mask=mask[:, None], scale=1.0).transpose(1, 2)
+
+
+def _pa_bound_ms(positions, nq, heads, d, kind, n_tab):
+    """The least time of one call: the keys at positions 0 .. p + nq - 1
+    of each row, K and V head rows (codes and sidecars) read once, q,
+    the tables and positions read and the output written once (bytes);
+    4 flops a seen key and column for each query (operations).  Returns
+    (ms, "bytes" or "operations", bytes)."""
+    lctx = n_tab * DEC_PAGE
+    b = len(positions)
+    read = sum(min(p + nq, lctx) for p in positions)
+    seen = sum(min(p + j + 1, lctx) for p in positions for j in range(nq))
+    code = 4 if kind == "fp32" else 1
+    nbytes = 2 * read * (heads * d * code + PA_SIDECAR_BYTES[kind]) + \
+        2 * b * nq * heads * d * 4 + (b * n_tab + b) * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * seen * heads * d / PEAK_FLOPS[torch.float32] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes
+
+
+def _pa_contract_failures(fn, pa, dec, kind, rng, heads, d, pos):
+    """``fn`` (a paged attention with ``pa.paged_attention``'s signature)
+    at phase 27 (a)'s shape against the plain version, step (nq 1) and
+    verify (nq 5), and its bitwise invariances: rows alone, a permuted
+    batch, moved pages, the verify's query j against a step at p + j.
+    Returns (max |err|, [failures])."""
+    n_tab = GPT2["max_length"] // DEC_PAGE
+    k, v, quant, tables = _pa_case(dec, kind, rng, 8, heads, d, n_tab,
+                                   8 * n_tab + 1)
+    err, bad = 0.0, []
+    for nq in (1, 5):
+        q = torch.from_numpy(rng.randn(8, nq, heads, d).astype("float32")
+                             * d ** -0.5).cuda()
+        out = fn(q, k, v, tables, pos, quant)
+        ref = pa._reference(q, k, v, tables, pos, quant)
+        e = (out - ref).abs().max().item()
+        if not e <= DEC_KERNEL_TOL * ref.abs().max().item():
+            bad.append(f"{kind} D={d} nq={nq} off its plain version by "
+                       f"{e:.3e}")
+        err = max(err, e)
+    q = torch.from_numpy(rng.randn(8, 5, heads, d).astype("float32")
+                         * d ** -0.5).cuda()
+    full = fn(q, k, v, tables, pos, quant)
+    for r in (0, 5):
+        if not torch.equal(fn(q[r:r + 1], k, v, tables[r:r + 1],
+                              pos[r:r + 1], quant), full[r:r + 1]):
+            bad.append(f"{kind} D={d}: row {r} alone differs")
+    perm = [3, 1, 7, 0, 2, 6, 4, 5]
+    if not torch.equal(fn(q[perm], k, v, tables[perm], pos[perm], quant),
+                       full[perm]):
+        bad.append(f"{kind} D={d}: a permuted batch differs")
+    for j in range(5):
+        if not torch.equal(fn(q[:, j:j + 1].contiguous(), k, v, tables,
+                              pos + j, quant), full[:, j:j + 1]):
+            bad.append(f"{kind} D={d}: verify query {j} differs from the "
+                       f"step at p + {j}")
+    # every row's pages moved to other physical pages (row r takes row
+    # r - 1's page ids), their content (and sidecars) with them
+    moved = torch.roll(tables, 1, dims=0)
+    kk, vv = k.clone(), v.clone()
+    sides = [t.clone() for t in quant or []]
+    for a, c in zip([k, v] + list(quant or []), [kk, vv] + sides):
+        pa.pool_bytes(c)[moved.flatten().long()] = \
+            pa.pool_bytes(a)[tables.flatten().long()]
+    if not torch.equal(fn(q, kk, vv, moved, pos, sides or None), full):
+        bad.append(f"{kind} D={d}: moved pages change the result")
+    return err, bad
+
+
+def _pa_times(fns, pa, dec, rng, kinds=PA_KINDS, nqs=(1, 5), cold=True):
+    """Each of ``fns`` (name -> a paged attention) over one GPT-2 small
+    step's (nq 1) or verify's (nq 5) 12 layers at batch 8, positions
+    ``PA_POSITIONS``, per pool kind: warm (one layer's pools, 12 times the
+    call) and cold (12 layers' pools in turn, as the served loop reads
+    them; 282 MB of live fp32 context, past the 50 MB L2).  Returns
+    {(kind, nq): {name: (warm ms, cold ms or None)}}."""
+    heads, d = GPT2["num_heads"], GPT2["units"] // GPT2["num_heads"]
+    layers = GPT2["num_layers"]
+    n_tab = GPT2["max_length"] // DEC_PAGE
+    pos = torch.tensor(PA_POSITIONS, dtype=torch.int32, device="cuda")
+    got = {}
+    for kind in kinds:
+        pools = [_pa_case(dec, kind, rng, 8, heads, d, n_tab, 8 * n_tab + 1)]
+        if cold:
+            pools += [_pa_case(dec, kind, rng, 8, heads, d, n_tab,
+                               8 * n_tab + 1, tables=pools[0][3])
+                      for _ in range(layers - 1)]
+        for nq in nqs:
+            q = torch.from_numpy(rng.randn(8, nq, heads, d).astype(
+                "float32") * d ** -0.5).cuda()
+            row = got.setdefault((kind, nq), {})
+            for name, fn in fns.items():
+                k, v, quant, tables = pools[0]
+                warm = layers * device_ms(
+                    lambda: fn(q, k, v, tables, pos, quant), iters=50)
+
+                def step():
+                    for k, v, quant, tables in pools:
+                        fn(q, k, v, tables, pos, quant)
+                row[name] = (warm, device_ms(step, iters=10) if cold
+                             else None)
+        del pools
+    return got
 
 
 def _decode_attention(pa, dec, card):
@@ -4254,89 +4372,70 @@ def _decode_attention(pa, dec, card):
     (batch 8, 12 heads, D 64, a 1024-token table) over fp32, int8 and fp8
     pools, step and verify (K = 4), and at decode_base's D 32; its
     invariance to batch composition, page placement and the query count;
-    its time for one step's 12 layers."""
+    its time for one step's and one verify's 12 layers, warm and cold,
+    for each pool kind, beside the plain version, gather + SDPA and the
+    bound."""
     rng = np.random.RandomState(28)
     heads, d = GPT2["num_heads"], GPT2["units"] // GPT2["num_heads"]
     n_tab = GPT2["max_length"] // DEC_PAGE
-    pos = torch.tensor([200, 300, 400, 500, 550, 600, 620, 639],
-                       dtype=torch.int32, device="cuda")
-    err = 0.0
-    for kind in ("fp32", "int8", "fp8"):
-        for dd, hh in ((d, heads), (32, 8)):
-            k, v, quant, tables = _pa_case(dec, kind, rng, 8, hh, dd, n_tab,
-                                           8 * n_tab + 1)
-            for nq in (1, 5):
-                q = torch.from_numpy(rng.randn(8, nq, hh, dd).astype(
-                    "float32") * dd ** -0.5).cuda()
-                out = pa.paged_attention(q, k, v, tables, pos, quant)
-                ref = pa._reference(q, k, v, tables, pos, quant)
-                e = (out - ref).abs().max().item()
-                check(e <= DEC_KERNEL_TOL * ref.abs().max().item(),
-                      f"paged attention {kind} D={dd} nq={nq} off its plain "
-                      f"version by {e:.3e}")
-                err = max(err, e)
-            # invariance: rows alone, a permuted batch, moved pages, and
-            # the verify's query j against a step at position + j
-            q = torch.from_numpy(rng.randn(8, 5, hh, dd).astype("float32")
-                                 * dd ** -0.5).cuda()
-            full = pa.paged_attention(q, k, v, tables, pos, quant)
-            for r in (0, 5):
-                check(torch.equal(pa.paged_attention(
-                    q[r:r + 1], k, v, tables[r:r + 1], pos[r:r + 1], quant),
-                    full[r:r + 1]), f"paged attention {kind}: row {r} "
-                                    f"alone differs")
-            perm = [3, 1, 7, 0, 2, 6, 4, 5]
-            check(torch.equal(pa.paged_attention(
-                q[perm], k, v, tables[perm], pos[perm], quant), full[perm]),
-                f"paged attention {kind}: a permuted batch differs")
-            for j in range(5):
-                check(torch.equal(pa.paged_attention(
-                    q[:, j:j + 1].contiguous(), k, v, tables, pos + j, quant),
-                    full[:, j:j + 1]), f"paged attention {kind}: verify "
-                                       f"query {j} differs from the step")
-            # every row's pages moved to other physical pages (row r takes
-            # row r - 1's page ids), their content (and sidecars) with them
-            moved = torch.roll(tables, 1, dims=0)
-            kk, vv = k.clone(), v.clone()
-            sides = [t.clone() for t in quant or []]
-            for a, c in zip([k, v] + list(quant or []), [kk, vv] + sides):
-                pa.pool_bytes(c)[moved.flatten().long()] = \
-                    pa.pool_bytes(a)[tables.flatten().long()]
-            check(torch.equal(pa.paged_attention(
-                q, kk, vv, moved, pos, sides or None), full),
-                f"paged attention {kind}: moved pages change the result")
-    k, v, _, tables = _pa_case(dec, "fp32", rng, 8, heads, d, n_tab,
-                               8 * n_tab + 1)
-    q = torch.from_numpy(rng.randn(8, 1, heads, d).astype("float32")
-                         * d ** -0.5).cuda()
     layers = GPT2["num_layers"]
-    ms = device_ms(lambda: pa.paged_attention(q, k, v, tables, pos))
-    plain_ms = device_ms(lambda: pa._reference(q, k, v, tables, pos),
-                         iters=10)
-    lib_ms = device_ms(lambda: _sdpa_on_gathered(pa, q, k, v, tables, pos),
-                       iters=10)
-    live = int((pos.long() + 1).sum())
-    nbytes = (2 * live * heads * d + 2 * q.numel()) * 4
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = 4 * live * heads * d / PEAK_FLOPS[torch.float32] * 1e3
-    bound, bound_by = max(by_bytes, by_ops), \
-        ("bytes" if by_bytes >= by_ops else "operations")
-    log(f"[decode] paged attention, one GPT-2 small layer at batch 8 "
-        f"(positions {pos.tolist()}, {live} live keys, {nbytes / 1e6:.2f} "
-        f"MB): kernel {ms:.4f} ms, plain {plain_ms:.4f}, gather + SDPA "
-        f"{lib_ms:.4f}, bound {bound:.4f} ({bound_by}); x{layers} a step; "
-        f"fp32, int8 and fp8 pools, step and verify K=4, D 64 and 32, max "
-        f"|err| {err:.3e}; invariant to batch, page placement and query "
-        f"count; on {card}")
+    pos = torch.tensor(PA_POSITIONS, dtype=torch.int32, device="cuda")
+    err = 0.0
+    for kind in PA_KINDS:
+        for dd, hh in ((d, heads), (32, 8)):
+            e, bad = _pa_contract_failures(pa.paged_attention, pa, dec, kind,
+                                           rng, hh, dd, pos)
+            for what in bad:
+                check(False, f"paged attention {what}")
+            err = max(err, e)
+    fns = {"kernel": pa.paged_attention,
+           "plain": pa._reference,
+           "gather + SDPA": lambda *a: _sdpa_on_gathered(pa, *a)}
+    times = _pa_times(fns, pa, dec, rng)
+    rec = {}
+    for (kind, nq), row in times.items():
+        bound, bound_by, nbytes = _pa_bound_ms(PA_POSITIONS, nq, heads, d,
+                                               kind, n_tab)
+        warm, cold = row["kernel"]
+        entry = dict(ms=warm, cold_ms=cold, plain_ms=row["plain"][0],
+                     library_ms=row["gather + SDPA"][0],
+                     library_cold_ms=row["gather + SDPA"][1],
+                     bound_ms=layers * bound, bound_by=bound_by,
+                     shape=f"{'one step' if nq == 1 else 'one verify, K=4'}"
+                           f" at batch 8, {layers} layers, {kind} pools")
+        rec[(kind, nq)] = entry
+        log(f"[decode] paged attention, {entry['shape']} (positions "
+            f"{list(PA_POSITIONS)}, {nbytes / 1e6:.2f} MB a layer): kernel "
+            f"warm {warm:.4f} ms, cold {cold:.4f}; plain "
+            f"{entry['plain_ms']:.4f}; gather + SDPA warm "
+            f"{entry['library_ms']:.4f}, cold {entry['library_cold_ms']:.4f}"
+            f"; bound {entry['bound_ms']:.4f} ({bound_by}), "
+            f"{entry['bound_ms'] / cold:.3f} of it cold; on {card}")
+    step, verify = rec[("fp32", 1)], rec[("fp32", 5)]
+    log(f"[decode] paged attention: verify K=4 over step "
+        f"{verify['ms'] / step['ms']:.2f}x warm, "
+        f"{verify['cold_ms'] / step['cold_ms']:.2f}x cold; fp32, int8 and "
+        f"fp8 pools, step and verify K=4, D 64 and 32, max |err| "
+        f"{err:.3e}; rows alone, a permuted batch, moved pages and verify "
+        f"query j against the step at p + j bit for bit; on {card}")
     return {"name": "paged_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
             "replaces": "none: the port's own (the JAX decode step's "
                         "_kv_gather + einsum + softmax, "
                         "mxnet_tpu/serving/decode/model.py:138, is XLA)",
-            "shape": "one GPT-2 small decode step at batch 8 (12 layers)",
-            "dtype": "float32", "max_abs_err": err, "ms": layers * ms,
-            "plain_ms": layers * plain_ms, "bound_ms": layers * bound,
-            "bound_by": bound_by, "library_ms": layers * lib_ms}
+            "shape": "one GPT-2 small decode step at batch 8 (12 layers), "
+                     "fp32 pools, one layer's pools (warm)",
+            "dtype": "float32", "max_abs_err": err, "ms": step["ms"],
+            "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+            "bound_by": step["bound_by"], "library_ms": step["library_ms"],
+            "cold": dict(ms=step["cold_ms"],
+                         library_ms=step["library_cold_ms"],
+                         bound_ms=step["bound_ms"],
+                         bound_by=step["bound_by"],
+                         shape=f"one GPT-2 small decode step at batch 8, "
+                               f"{layers} layers' fp32 pools in turn"),
+            "variants": [dict(kind=kind, queries=nq, **e)
+                         for (kind, nq), e in rec.items()]}
 
 
 def _dec_requests(rng, n, lo, hi, vocab, new, sampled_every=2):
@@ -4587,10 +4686,11 @@ def _decode_profile(rt, rd, pa, reqs):
         log(f"[profile] decode step at batch {b}: {wall:.3f} ms wall; device "
             f"time not measured (no CUDA events in the trace)")
         return out
-    # every kernel the rowdot entry may launch (rowdot_split_kernel,
-    # rowdot_tiled_kernel)
+    # every kernel each entry may launch (rowdot_split_kernel,
+    # rowdot_tiled_kernel; paged_attention_chunk_kernel, whatever its
+    # template arguments)
     out.update(idle=1 - busy / prof_wall, a_ms=family("rowdot_"),
-               b_ms=family("paged_attention_kernel"),
+               b_ms=family("paged_attention_"),
                busy_ms=busy / PROFILE_STEPS)
     log(f"[profile] decode step at batch {b} (GPT-2 small, positions "
         f"{int(lengths.min())}-{int(lengths.max()) + PROFILE_STEPS + 3}): "

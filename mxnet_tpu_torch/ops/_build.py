@@ -95,8 +95,12 @@ def bind(lib):
         [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.mxt_rowdot.restype = ctypes.c_int
     lib.mxt_paged_attention.argtypes = [ctypes.c_void_p] * 10 + \
-        [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p]
     lib.mxt_paged_attention.restype = ctypes.c_int
+    lib.mxt_paged_attention_chunk.argtypes = []
+    lib.mxt_paged_attention_chunk.restype = ctypes.c_int
     lib.mxt_error_string.argtypes = [ctypes.c_int]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib
@@ -105,15 +109,16 @@ def bind(lib):
 def stream_scratch(cache, device, stream, floats, tickets):
     """A kernel's scratch on ``stream``, kept in ``cache`` (the kernel's
     dict): (partials, tickets, partials pointer, tickets pointer, tickets
-    count), ``floats`` fp32 partials and at least ``tickets`` int32
+    count), at least ``floats`` fp32 partials and ``tickets`` int32
     tickets.  Allocated at the stream's first call (the tickets zeroed),
-    then reused by every call on it; the kernels leave the tickets at
-    zero.  Only the ``SCRATCH_STREAMS`` streams used last keep theirs: the
-    allocator hands a dropped buffer only to a later allocation on the
-    same stream, which runs after the kernels that used it."""
+    then reused by every call on it, and allocated anew for a call that
+    needs more; the kernels leave the tickets at zero.  Only the
+    ``SCRATCH_STREAMS`` streams used last keep theirs: the allocator hands
+    a dropped buffer only to a later allocation on the same stream, which
+    runs after the kernels that used it."""
     key = (device, stream)
     s = cache.pop(key, None)
-    if s is None or s[1].numel() < tickets:
+    if s is None or s[0].numel() < floats or s[1].numel() < tickets:
         dev = torch.device("cuda", device)
         s = (torch.empty(floats, dtype=torch.float32, device=dev),
              torch.zeros(tickets, dtype=torch.int32, device=dev))

@@ -6,8 +6,14 @@ row's whole paged context and attends with einsums and a masked softmax
 (``mxnet_tpu/serving/decode/model.py:113-155`` ``_kv_gather``, the
 ``attend`` of ``step_math`` :303-315 and ``verify_math`` :374-384).
 ``csrc/paged_attention.cu`` reads the page table and the pools in place,
-dequantises int8 and fp8 pools in the load, and stops at the row's last
-live position (see the source for its row-stable order).
+dequantises int8 and fp8 pools after the copy, and stops at the row's last
+live position.  It splits each row's context into chunks of 64 keys fixed
+in absolute position, one block a (chunk, head, row), and folds each
+query's chunk partials in chunk order inside the same launch, so a
+query's bits depend on its position alone (see the source).  The partials
+and the fold's tickets are the wrapper's: allocated per (device, stream)
+at its first call, grown when a call needs more, and kept (the kernel
+leaves the tickets at zero).
 
 The new K/V rows are scattered into the pools before the call (the
 caller's ``index_put_``, as ``_kv_scatter`` does).  On a CUDA tensor
@@ -24,6 +30,14 @@ from . import _build
 __all__ = ["paged_attention", "gather_pages", "pool_bytes"]
 
 _NEG = -1e30
+
+# scratch a (device, stream) keeps (``_build.stream_scratch``): at least
+# 4 MB of chunk partials and 4096 tickets, grown to a power of two
+_PARTIAL_MIN = 1 << 20
+_TICKET_MIN = 1 << 12
+_scratch = {}
+_lib = None
+_chunk = None
 
 
 def pool_bytes(t):
@@ -98,6 +112,21 @@ def _quant_code(pool, quant):
                     f"int8 with 4 or float8_e4m3fn with 2")
 
 
+def _grown(need, least):
+    """``need`` rounded up to a power of two, at least ``least``."""
+    return max(least, 1 << max(need - 1, 0).bit_length())
+
+
+def _library():
+    """The kernel library and the kernel's chunk length, loaded once."""
+    global _lib, _chunk
+    if _lib is None:
+        lib = _build.load()
+        _chunk = lib.mxt_paged_attention_chunk()
+        _lib = lib
+    return _lib
+
+
 def paged_attention(q, k_pool, v_pool, tables, positions, quant=None):
     """Attention of ``q (B, Q, H, D)`` (scaled) over each row's paged
     context: ``k_pool``/``v_pool`` are one layer's ``(pages, page_size, H,
@@ -143,13 +172,21 @@ def paged_attention(q, k_pool, v_pool, tables, positions, quant=None):
     elif code == 0:
         sides = [None] * 4
     out = torch.empty_like(q)
-    lib = _build.load()
+    n_tab = tables.shape[1]
+    device = q.get_device()
+    lib = _library()
+    stream = _build.raw_stream(device)
+    slots = -(-n_tab * ps // _chunk)
+    scratch = _build.stream_scratch(
+        _scratch, device, stream,
+        _grown(b * nq * h * slots * (d + 2), _PARTIAL_MIN),
+        _grown(b * h, _TICKET_MIN))
     rc = lib.mxt_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *[None if t is None else t.data_ptr() for t in sides],
         tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        b, nq, h, d, ps, tables.shape[1], code, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        b, nq, h, d, ps, n_tab, code, scratch[2], scratch[0].numel(),
+        scratch[3], scratch[4], device, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"{lib.mxt_error_string(rc).decode()} "

@@ -13,11 +13,11 @@ therefore row-stable on the card: the contractions go through
 :func:`~mxnet_tpu_torch.ops.rowdot.rowdot` (``csrc/rowdot.cu``, a fixed
 summation order per output), the step's and the verify's attention through
 :func:`~mxnet_tpu_torch.ops.paged_attention.paged_attention`
-(``csrc/paged_attention.cu``, one block per row and head), the prefill's
-through the flash kernel (``csrc/flash_attention.cu``, causal: a valid row
-sees no padded key), LayerNorm through ``F.layer_norm`` (one block per row)
-and GELU elementwise; the quantizers reduce over a token row's own
-``(H, D)`` only.  On the CPU the same functions run their plain versions,
+(``csrc/paged_attention.cu``, 64-key chunks folded in chunk order), the
+prefill's through the flash kernel (``csrc/flash_attention.cu``, causal: a
+valid row sees no padded key), LayerNorm through ``F.layer_norm`` (one
+block per row) and GELU elementwise; the quantizers reduce over a token
+row's own ``(H, D)`` only.  On the CPU the same functions run their plain versions,
 which the tests hold against the JAX package.
 
 The JAX functions are pure and return updated page arrays; here

@@ -15,8 +15,11 @@ runs without them:
   forced on the same inputs give the same bits;
 - the paged attention kernel (``csrc/paged_attention.cu``) against its
   plain version over fp32, int8 and fp8 pools, step and verify (K = 4),
-  and its invariance to batch composition, physical page placement and
-  the verify's query count;
+  D 64, 32, 128 and 24, at contexts of one key, on and one past a 64-key
+  chunk's edge, a verify crossing into the next chunk and the full
+  1024-key table, one launch a call; its invariance to batch
+  composition, physical page placement and the verify's query count; two
+  calls on two streams bit for bit, the tickets left at zero;
 - the flash prefill's rows invariant to the seq bucket and the batch,
   ``F.layer_norm``'s rows to the row count;
 - solo against continuous decode, greedy and sampled, bit for bit.
@@ -169,52 +172,81 @@ def _pool_case(kind, b=8, heads=12, d=64, ps=16, n_tab=64, pages=None,
     return kq, vq, [ks, vs], tables
 
 
+# heads a width: GPT-2 small (64), decode_base (32), a wide and a ragged
+# head (24: int8 and fp8 rows of 24 bytes take the kernel's plain loads)
+PA_HEADS = {64: 12, 32: 8, 128: 4, 24: 6}
+
+
+def _pa_positions(which, nq):
+    """Rows of very different lengths in one call.  ``spread``: one key
+    (p = 0) up to the full 1024-key table at the last query.  ``chunks``:
+    contexts that end on a 64-key chunk's last key (63, 127), one key past
+    it (64, 128), a verify whose queries cross into the next chunk (60),
+    and the table's last key at the last query."""
+    rows = {"spread": [0, 15, 16, 100, 511, 640, 1000, 1024 - nq],
+            "chunks": [63, 64, 60, 0, 127, 128, 1024 - nq, 5]}[which]
+    return torch.tensor(rows, dtype=torch.int32, device="cuda")
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", ["spread", "chunks"])
 @pytest.mark.parametrize("kind", ["fp32", "int8", "fp8"])
 @pytest.mark.parametrize("nq", [1, 5])
-@pytest.mark.parametrize("d", [64, 32])
-def test_paged_attention_matches_plain(cuda, kind, nq, d):
-    heads = 768 // d if d == 64 else 8
+@pytest.mark.parametrize("d", [64, 32, 128, 24])
+def test_paged_attention_matches_plain(cuda, kind, nq, d, which):
+    heads = PA_HEADS[d]
     k, v, quant, tables = _pool_case(kind, heads=heads, d=d, seed=nq + d)
     rng = np.random.RandomState(2)
     q = _randn(rng, 8, nq, heads, d, scale=d ** -0.5)
-    positions = torch.tensor([0, 15, 16, 100, 511, 640, 1000, 1019],
-                             dtype=torch.int32, device="cuda")
+    positions = _pa_positions(which, nq)
     before = pa.paged_attention.launches
     out = pa.paged_attention(q, k, v, tables, positions, quant)
     torch.cuda.synchronize()
-    assert pa.paged_attention.launches == before + 1
+    assert pa.paged_attention.launches == before + 1     # one launch a call
     _held(out, pa._reference(q, k, v, tables, positions, quant), 1e-5,
-          f"paged attention {kind} nq={nq} d={d}")
+          f"paged attention {kind} nq={nq} d={d} {which}")
+    assert all(not t[1].any() for t in pa._scratch.values())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["fp32", "int8", "fp8"])
-def test_paged_attention_row_invariance(cuda, kind):
+@pytest.mark.parametrize("d", [64, 32])
+def test_paged_attention_row_invariance(cuda, kind, d):
     """A row's bits do not depend on the batch around it, on where its
-    pages lie, or on how many queries the call carries."""
-    k, v, quant, tables = _pool_case(kind, b=4, n_tab=8, pages=64, seed=3)
+    pages lie, or on how many queries the call carries, at chunk edges
+    too: contexts of one key, ending on a chunk's last key or one past
+    it, a verify crossing into the next chunk, the full table."""
+    heads = PA_HEADS[d]
+    k, v, quant, tables = _pool_case(kind, b=8, heads=heads, d=d, n_tab=64,
+                                     pages=600, seed=3)
     rng = np.random.RandomState(4)
-    q = _randn(rng, 4, 5, 12, 64, scale=0.125)
-    pos = torch.tensor([3, 40, 77, 120], dtype=torch.int32, device="cuda")
+    q = _randn(rng, 8, 5, heads, d, scale=d ** -0.5)
+    pos = torch.tensor([3, 60, 63, 0, 120, 1019, 500, 64],
+                       dtype=torch.int32, device="cuda")
     full = pa.paged_attention(q, k, v, tables, pos, quant)
-    for r in range(4):
+    for r in range(8):
         one = pa.paged_attention(q[r:r + 1], k, v, tables[r:r + 1],
                                  pos[r:r + 1], quant)
         assert torch.equal(one, full[r:r + 1]), r
-    mixed = pa.paged_attention(q[[2, 0]], k, v, tables[[2, 0]], pos[[2, 0]],
+    perm = [5, 2, 0, 7, 1]
+    mixed = pa.paged_attention(q[perm], k, v, tables[perm], pos[perm],
                                quant)
-    assert torch.equal(mixed, full[[2, 0]])
-    # the verify's query j equals a 1-query step at position pos + j
+    assert torch.equal(mixed, full[perm])
+    # the verify's query j equals a 1-query step at position pos + j, and
+    # a 2-query verify's the same
     for j in range(5):
         step = pa.paged_attention(q[:, j:j + 1].contiguous(), k, v, tables,
                                   pos + j, quant)
         assert torch.equal(step, full[:, j:j + 1]), j
+    two = pa.paged_attention(q[:, 3:5].contiguous(), k, v, tables, pos + 3,
+                             quant)
+    assert torch.equal(two, full[:, 3:5])
     # row 1's pages moved to other physical pages (copied with sidecars)
-    free = [p for p in range(1, 64) if p not in set(tables.flatten().tolist())]
+    free = [p for p in range(1, 600)
+            if p not in set(tables.flatten().tolist())]
     moved = tables.clone()
     pools = [k, v] + list(quant or [])
-    for slot in range(8):
+    for slot in range(64):
         src, dst = int(tables[1, slot]), free[slot]
         for t in pools:
             bt = pa.pool_bytes(t)
@@ -222,6 +254,33 @@ def test_paged_attention_row_invariance(cuda, kind):
         moved[1, slot] = dst
     again = pa.paged_attention(q, k, v, moved, pos, quant)
     assert torch.equal(again, full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+def test_paged_attention_two_streams_bitwise(cuda, kind):
+    """Two calls in flight on two streams (each its own scratch) give the
+    same bits as each other and as a call on the default stream, and
+    leave every ticket at zero."""
+    k, v, quant, tables = _pool_case(kind, seed=7)
+    rng = np.random.RandomState(8)
+    q = _randn(rng, 8, 5, 12, 64, scale=0.125)
+    pos = _pa_positions("spread", 5)
+    want = pa.paged_attention(q, k, v, tables, pos, quant)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([pa.paged_attention(q, k, v, tables, pos, quant)
+                         for _ in range(3)])
+    torch.cuda.synchronize()
+    for got in outs:
+        for o in got:
+            assert torch.equal(o, want)
+    assert len(pa._scratch) >= 2
+    assert all(not t[1].any() for t in pa._scratch.values())
 
 
 # ---------------------------------------------------- prefill and LayerNorm
