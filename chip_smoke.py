@@ -314,8 +314,35 @@ beside the backward's bound.  Phase 3 holds and times the forward at phase
    equal the served tokens bit for bit; a ``[profile]`` of 20 steps at
    batch 8 (idle share, kernel A and B device ms and launches a step).
 
-Phases 4, 6, 9, 11, 17, 18, 22 and 27 print a ``[profile]`` breakdown of
-one micro-batch or step.  The last two lines are the kernels' JSON record and
+28. the model zoo (``[zoo]``, ``[zoo_bn]``), fp32 with TF32 off: (a)
+   ``example/image-classification/benchmark_score.py``'s loop (its
+   ``score`` copied: that file imports JAX) over its five nets (AlexNet,
+   VGG-16, ResNet-50 v1, ResNet-152 v1, Inception-v3 at 299x299) and
+   DenseNet-121, MobileNet 1.0, MobileNet v2 1.0 and SqueezeNet 1.1:
+   ``get_model(name, classes=1000)``, ``initialize`` on the card (seeded,
+   ``train_imagenet.py``'s Xavier), one call at batch 1, the logits at
+   batch 2 within 1e-4 of the largest logit of the port's CPU plain run
+   of the same ``.params`` file, then ``hybridize(static_alloc=True)``,
+   one warm call and 30 timed calls at batch 1 and at batch 32: images/s
+   and peak memory beside ``BASELINE.md``'s V100 row where there is one;
+   (b) Inception-v3, DenseNet-121 and MobileNet v2 1.0 trained with phase
+   9's recipe from (a)'s weights: phase 8's parity (2 steps at batch 8,
+   card against the CPU, every Dropout mask drawn on the host and shared
+   by the runs; the three reordered CPU runs convolve with torch's own
+   CPU kernels in place of oneDNN's, so that their spread holds the
+   per-sample summation noise the card's cuDNN brings, see
+   ``_zoo_parity``), then 3 warm and 10 timed steps at batch 32 (step ms,
+   images/s, peak memory), exactly 94, 121 and 53 bn-stats launches a
+   forward, each launch of one more step held against the plain version,
+   and a ``[profile]`` of a DenseNet-121 step; (c) the bn-stats kernel at
+   each distinct BatchNorm input of (b)'s nets at batch 32, fp32 and bf16,
+   and at mean 1000, against its plain version, and per net the summed
+   ms of one forward's launches beside the plain version,
+   ``torch.var_mean`` and the bound.  The bn-stats record gains
+   ``zoo_launches`` ((b)'s warm and timed steps) and ``zoo`` ((c)'s sums).
+
+Phases 4, 6, 9, 11, 17, 18, 22, 27 and 28 print a ``[profile]`` breakdown
+of one micro-batch or step.  The last two lines are the kernels' JSON record and
 the device line.
 """
 from __future__ import annotations
@@ -1584,11 +1611,12 @@ def bn_launch_hook(bs, hook):
         bs._launch = real
 
 
-def check_bn_calls(bs, step, tag):
+def check_bn_calls(bs, step, tag, per_forward=BN_PER_FORWARD):
     """One more training step in which the statistics of every bn-stats
     launch are held against the plain version on the same input (1e-4 of
     max(1, |mean|, var), phase 7's tolerance at mean 1000): the kernel ran,
-    and ran right, at each of the path's BatchNorm inputs."""
+    and ran right, at each of the path's ``per_forward`` BatchNorm
+    inputs."""
     errs = []
 
     def compare(x, pivot, axis, mean, var):
@@ -1602,10 +1630,10 @@ def check_bn_calls(bs, step, tag):
         step()
     torch.cuda.synchronize()
     worst = max(errs)
-    check(len(errs) == BN_PER_FORWARD and all(math.isfinite(e) and e <= 1e-4
-                                              for e, _ in errs),
+    check(len(errs) == per_forward and all(math.isfinite(e) and e <= 1e-4
+                                           for e, _ in errs),
           f"{tag} {len(errs)} bn-stats launches in a checked step (want "
-          f"{BN_PER_FORWARD}), worst {worst}")
+          f"{per_forward}), worst {worst}")
     log(f"{tag} every bn-stats launch of one step against the plain "
         f"version: {len(errs)} launches, worst error {worst[0]:.3e} of "
         f"max(1, |mean|, var) at {worst[1]} (tol 1e-4)")
@@ -1635,7 +1663,7 @@ def _trace_gaps(prof):
         f"launches with no kernel record: {lost[:12]}")
 
 
-def _profile_one_step(step):
+def _profile_one_step(step, per_forward=BN_PER_FORWARD):
     """One step under the profiler, after a step under its warm-up:
     (the profile, the step's bn-stats calls)."""
     from mxnet_tpu_torch.ops import bn_stats
@@ -1653,12 +1681,13 @@ def _profile_one_step(step):
         torch.cuda.synchronize()
         prof.step()
     calls = bn_stats.bn_stats.launches - calls
-    check(calls == BN_PER_FORWARD, f"{calls} bn-stats calls in the profiled "
-                                   f"step (want {BN_PER_FORWARD})")
+    check(calls == per_forward, f"{calls} bn-stats calls in the profiled "
+                                f"step (want {per_forward})")
     return prof, calls
 
 
-def profile_train_step(step, step_ms, top=12):
+def profile_train_step(step, step_ms, top=12, per_forward=BN_PER_FORWARD,
+                       what="train step"):
     """Device time by kernel over one training step (CUPTI through
     torch.profiler) beside the timed steps' mean wall time.  A step under
     the profiler's warm-up comes first: a trace started at the step lost
@@ -1667,10 +1696,11 @@ def profile_train_step(step, step_ms, top=12):
     records of the recorded step: a trace in which a runtime launch has no
     kernel record cannot count the step's kernels, so the step is
     profiled again (at most ``PROFILE_ATTEMPTS`` times); a complete trace
-    must hold one ``bn_stats`` kernel a call."""
+    must hold one ``bn_stats`` kernel a call.  ``per_forward``: the
+    step's bn-stats calls; ``what`` names the step in the lines."""
     from torch.autograd import DeviceType
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        prof, calls = _profile_one_step(step)
+        prof, calls = _profile_one_step(step, per_forward)
         # the schedule's "ProfilerStep#" range spans the step on the host
         # and on the device: it is neither a kernel nor a host op of it
         events = [e for e in prof.key_averages()
@@ -1688,12 +1718,12 @@ def profile_train_step(step, step_ms, top=12):
             f"kernel records; profiling the step again")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
-        log(f"[profile] train step: {step_ms:.3f} ms wall; device time not "
+        log(f"[profile] {what}: {step_ms:.3f} ms wall; device time not "
             f"measured (no CUDA events in the trace)")
         return
     bn_ms = sum(e.self_device_time_total for e in kernels
                 if "bn_stats" in e.key) / 1e3
-    log(f"[profile] train step batch {TRAIN_BATCH}: {step_ms:.3f} ms wall "
+    log(f"[profile] {what} batch {TRAIN_BATCH}: {step_ms:.3f} ms wall "
         f"(mean of {TIMED_STEPS}), device busy {busy_ms:.3f} ms, idle share "
         f"{1 - busy_ms / step_ms:.3f}, {len(kernels)} kernels, "
         f"{sum(e.count for e in kernels)} launches; bn-stats kernels "
@@ -1703,15 +1733,15 @@ def profile_train_step(step, step_ms, top=12):
     check(bn_launches == calls,
           f"{bn_launches} bn_stats kernels for {calls} calls in one training "
           f"step (want one launch a call)")
-    log(f"[profile] train step convolutions by kind: "
+    log(f"[profile] {what} convolutions by kind: "
         f"{_conv_kinds(kernels)}")
     host_ops = [e for e in events if e.device_type != DeviceType.CUDA]
     host = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:6]
-    log("[profile] train step host ops by self CPU ms: " + ", ".join(
+    log(f"[profile] {what} host ops by self CPU ms: " + ", ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} x{e.count}"
         for e in host))
     wrapper = [e for e in host_ops if "_BatchStats" in e.key]
-    log("[profile] train step bn-stats wrapper by self CPU ms: " + (
+    log(f"[profile] {what} bn-stats wrapper by self CPU ms: " + (
         ", ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} "
                   f"x{e.count}" for e in wrapper) or "not in the trace"))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
@@ -4820,6 +4850,369 @@ def phase_decode(card):
     return a, b, launches["flash_attention"], prof
 
 
+# --------------------------------------------------------------- slice 18
+# phase 28: the rest of the vision model zoo, served and trained
+ZOO_SERVE = ("alexnet", "vgg16", "resnet50_v1", "resnet152_v1",
+             "inceptionv3", "densenet121", "mobilenet1.0", "mobilenetv2_1.0",
+             "squeezenet1.1")
+ZOO_BATCHES = (1, 32)
+ZOO_ITERS = 30                         # benchmark_score.py's iters
+ZOO_PARITY_BATCH = 2
+ZOO_TOL = 1e-4                         # of the largest logit
+# the training-mode BatchNorms of one forward of each trained net
+ZOO_TRAIN = {"inceptionv3": 94, "densenet121": 121, "mobilenetv2_1.0": 53}
+ZOO_PROFILED = "densenet121"
+# BASELINE.md's V100 fp32 rows, images/s (docs/faq/perf.md:176-181 for
+# inference, :239 for training): a yardstick, not a target
+V100_SERVE = {("resnet50_v1", 1): 162.15, ("resnet50_v1", 32): 1076.81,
+              ("resnet152_v1", 32): 451.82, ("inceptionv3", 32): 814.59,
+              ("vgg16", 32): 708.43, ("alexnet", 32): 7906.09}
+V100_TRAIN = {"inceptionv3": 214.48}
+
+
+def zoo_image(name):
+    """``benchmark_score.py``'s input: (3, 299, 299) for Inception-v3."""
+    return (3, 299, 299) if name == "inceptionv3" else IMAGE
+
+
+def _zoo_serve(mx, name, card, seed):
+    """``score`` of ``example/image-classification/benchmark_score.py:17-34``
+    (copied: that file imports JAX) for one net at each batch of
+    ``ZOO_BATCHES``: ``get_model(name, classes=1000)``, ``initialize`` on
+    the card (seeded, with ``train_imagenet.py``'s Xavier), one call at
+    batch 1, then, before any timing, the
+    logits at batch 2 held against the port's CPU plain run of the same
+    ``.params`` file (``ZOO_TOL`` of the largest logit); then
+    ``hybridize(static_alloc=True)``, one warm call and ``ZOO_ITERS`` timed
+    calls a batch, synchronised at both ends.  Returns (the ``.params``
+    path, the CPU run's seconds)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    shape = zoo_image(name)
+    ctx = mx.gpu(0)
+    net = vision.get_model(name, classes=1000)
+    # train_imagenet.py's initializer (common/fit.py): logits stay O(1)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx,
+                   generator=torch.Generator(device="cuda").manual_seed(seed))
+    net(mx.nd.zeros((1,) + shape, ctx=ctx))
+    path = BUILD / f"zoo_{name}.params"
+    net.save_parameters(str(path))
+    check(all(t.is_cuda for t in net._collect_params_with_prefix().values()),
+          f"[zoo] {name}: parameters not on the card")
+    rng = np.random.RandomState(seed)
+    x2 = rng.rand(ZOO_PARITY_BATCH, *shape).astype("float32")
+    got = net(mx.nd.array(x2, ctx=ctx)).asnumpy()
+    t0 = time.perf_counter()
+    cpu_net = vision.get_model(name, classes=1000, device="cpu")
+    cpu_net.load_parameters(str(path))
+    with torch.inference_mode():
+        want = cpu_net(torch.from_numpy(x2)).numpy()
+    cpu_s = time.perf_counter() - t0
+    del cpu_net
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    check(got.shape == (ZOO_PARITY_BATCH, 1000) and np.isfinite(got).all()
+          and scale > 0 and all(float(r.std()) > 0 for r in got),
+          f"[zoo] {name}: logits {got.shape}, max {scale}")
+    check(err <= ZOO_TOL * scale,
+          f"[zoo] {name}: card logits disagree with the CPU: {err:.3e} of "
+          f"max {scale:.3e}")
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"[zoo] serve {name}: {n_params} parameters; batch "
+        f"{ZOO_PARITY_BATCH} logits card vs CPU plain ({cpu_s:.1f} s) "
+        f"{err:.3e}, {err / scale:.3e} of max|logit| {scale:.3e} (tol "
+        f"{ZOO_TOL:g})")
+    net.hybridize(static_alloc=True)
+    for batch in ZOO_BATCHES:
+        x = mx.nd.array(rng.rand(batch, *shape).astype("float32"), ctx=ctx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = net(x)
+        out.wait_to_read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_ITERS):
+            out = net(x)
+        out.wait_to_read()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(out.shape == (batch, 1000) and
+              bool(torch.isfinite(out.data).all()),
+              f"[zoo] {name}: batch {batch} output {out.shape}")
+        v100 = V100_SERVE.get((name, batch))
+        log(f"[zoo] serve {name} batch {batch} {shape}: "
+            f"{batch * ZOO_ITERS / dt:.2f} images/s ({dt * 1e3 / ZOO_ITERS:.3f} ms a "
+            f"call, {ZOO_ITERS} calls), peak device memory "
+            f"{peak / 2**30:.3f} GiB; V100 (BASELINE.md, a yardstick): "
+            + (f"{v100} images/s" if v100 else "no row") + f"; on {card}")
+    del net, out
+    return path, cpu_s
+
+
+@contextlib.contextmanager
+def shared_dropout(order):
+    """Every ``gluon.nn.Dropout`` in training draws its mask on the host
+    from a generator seeded by the call's index in the block,
+    over the batch in its original order, and takes the rows of ``order``
+    (the run's batch is the original's rows ``order``): the card's run and
+    the CPU's, reordered or not, drop the same units of each sample."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    real, calls = nn.Dropout.forward, [0]
+    rows = torch.from_numpy(np.asarray(order))
+
+    def forward(self, x):
+        if not autograd.is_training() or self._rate <= 0:
+            return x
+        gen = torch.Generator().manual_seed(28 + calls[0])
+        calls[0] += 1
+        keep = 1.0 - self._rate
+        mask = torch.empty(x.shape).bernoulli_(keep, generator=gen)
+        return x * mask[rows].to(x.device, x.dtype) / keep
+
+    nn.Dropout.forward = forward
+    try:
+        yield calls
+    finally:
+        nn.Dropout.forward = real
+
+
+def _zoo_parity(bs, name, path):
+    """Phase 8's parity for one net of (b): ``PARITY_STEPS`` SGD steps at
+    ``PARITY_BATCH`` on the card against the CPU plain run, within 1e-4 of
+    each tensor's max or twice the CPU run's largest spread under three
+    reorderings of the batch (:func:`_parity`); every Dropout mask drawn
+    on the host and shared (:func:`shared_dropout`).  The reordered CPU
+    runs convolve with torch's own CPU kernels in place of oneDNN's, so
+    that each sample's sums change order too, as they do on the card
+    (cuDNN): batch reorderings alone change only the sums over the batch,
+    and on an H100 the card then read up to 1.05 of the tolerance at
+    MobileNet v2's projection betas (zero in exact arithmetic, rounding
+    noise in fp32) and 1.81 at DenseNet-121's loss after a step
+    (``zoo_parity_probe.py`` compares the ways).  Returns the CPU runs'
+    seconds."""
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.gluon.nn import Dropout
+    per, shape, tag = ZOO_TRAIN[name], zoo_image(name), f"[zoo] train {name}"
+    rng = np.random.RandomState(9)
+    x = rng.randn(PARITY_BATCH, *shape).astype("float32")
+    y = rng.randint(0, 1000, PARITY_BATCH).astype("float32")
+
+    def run(device, order, onednn=True):
+        net = get_model(name, classes=1000, device=device)
+        net.load_parameters(str(path))
+        drops = sum(isinstance(m, Dropout) for m in net.modules())
+        with shared_dropout(order) as calls, \
+                torch.backends.mkldnn.flags(enabled=onednn):
+            out = _train(net, torch.from_numpy(x[order]).to(device),
+                         torch.from_numpy(y[order]).to(device), PARITY_STEPS)
+        check(calls[0] == drops * PARITY_STEPS,
+              f"{tag}: {calls[0]} shared Dropout masks in {PARITY_STEPS} "
+              f"steps of {drops} Dropout layers")
+        return [l[np.argsort(order)] for l in out[0]], out[1], out[2]
+
+    t0 = time.perf_counter()
+    ref = run("cpu", np.arange(PARITY_BATCH))
+    others = [run("cpu", p, onednn=False)
+              for p in _reorderings(PARITY_BATCH)]
+    cpu_s = time.perf_counter() - t0
+    with no_plain_stats_on_cuda(bs):
+        bs.bn_stats.launches = 0                 # the parity path starts
+        card_run = run("cuda", np.arange(PARITY_BATCH))
+        torch.cuda.synchronize()
+        launches = bs.bn_stats.launches          # the parity path ends
+    check(launches == per * PARITY_STEPS,
+          f"{tag}: {launches} bn-stats launches for {PARITY_STEPS} training "
+          f"forwards (want {per} each)")
+    log(f"{tag} parity: {1 + len(others)} CPU plain runs of {PARITY_STEPS} "
+        f"steps at batch {PARITY_BATCH} (the reordered ones without oneDNN) "
+        f"in {cpu_s:.1f} s; card: {launches} bn-stats launches ({per} per "
+        f"forward), none of the plain version")
+    _parity(tag, ref, others, card_run, PARITY_STEPS)
+    return cpu_s
+
+
+def _zoo_train(bs, name, path, card):
+    """(b) for one net: :func:`_zoo_parity`, then phase 9's recipe at
+    ``TRAIN_BATCH``: ``WARM_STEPS`` warm and ``TIMED_STEPS`` timed steps,
+    ``ZOO_TRAIN[name]`` bn-stats launches a forward, and one more step
+    with each launch held against the plain version.  Returns (launches of
+    the warm and timed steps, {BatchNorm input shape: count a forward},
+    the CPU runs' seconds)."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    per, shape, tag = ZOO_TRAIN[name], zoo_image(name), f"[zoo] train {name}"
+    cpu_s = _zoo_parity(bs, name, path)
+    rng = np.random.RandomState(10)
+    net = get_model(name, classes=1000)                 # the GPU
+    net.load_parameters(str(path))
+    bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
+    check(len(bns) == per, f"{tag}: {len(bns)} BatchNorm layers (want {per})")
+    bn_shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, i: bn_shapes.append(tuple(i[0].shape))) for m in bns]
+    xb = torch.from_numpy(rng.randn(TRAIN_BATCH, *shape).astype("float32")) \
+        .cuda()
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH)
+                          .astype("float32")).cuda()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(TRAIN_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(xb), yb)
+        autograd.backward(loss)
+        trainer.step(TRAIN_BATCH)
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_stats_on_cuda(bs), kernel_dtypes(bs) as seen:
+        bs.bn_stats.launches = 0                 # the main path starts
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(WARM_STEPS)]
+        gc.collect()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for h in hooks:
+            h.remove()
+        for _ in range(TIMED_STEPS):
+            losses.append(step())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = bs.bn_stats.launches          # the main path ends
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(l.mean()) for l in losses]
+    steps = WARM_STEPS + TIMED_STEPS
+    check(all(math.isfinite(l) for l in losses), f"{tag}: losses {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    check(launches == per * steps,
+          f"{tag}: {launches} bn-stats launches in {steps} steps (want "
+          f"{per} a step)")
+    check(set(seen) == {torch.float32},
+          f"{tag}: bn-stats launched on {set(seen)} inputs")
+    check(len(bn_shapes) == per * WARM_STEPS,
+          f"{tag}: {len(bn_shapes)} BatchNorm calls in {WARM_STEPS} forwards")
+    step_ms = (t2 - t1) * 1e3 / TIMED_STEPS
+    v100 = V100_TRAIN.get(name)
+    log(f"{tag} batch {TRAIN_BATCH} {shape} fp32 (TF32 off): {WARM_STEPS} "
+        f"warm steps {(t1 - t0) * 1e3:.1f} ms, {TIMED_STEPS} timed steps "
+        f"{step_ms:.3f} ms each, {TRAIN_BATCH * 1e3 / step_ms:.2f} images/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB; {launches} bn-stats "
+        f"launches ({per} per step); V100 (BASELINE.md, a yardstick): "
+        + (f"{v100} images/s" if v100 else "no row") + f"; on {card}")
+    log(f"{tag} mean loss per step: {[round(l, 4) for l in losses]}")
+    check_bn_calls(bs, step, tag, per)
+    if name == ZOO_PROFILED:
+        profile_train_step(step, step_ms, per_forward=per,
+                           what=f"zoo {name} train step")
+    counts = {}
+    for s in bn_shapes[:per]:
+        counts[s] = counts.get(s, 0) + 1
+    return launches, counts, cpu_s
+
+
+def _zoo_bn_kernel(bs, counts, card):
+    """(c) The bn-stats kernel alone at each distinct BatchNorm input of
+    the trained nets at batch 32 (``counts``: {net: {shape: count a
+    forward}}): phase 7's check in fp32 and bf16 (2e-5 on a variance of
+    0.25) and at mean 1000 (fp32, 1e-4), the kernel's own pivot giving
+    the explicit pivot's bits; the fp32 times of each shape beside the
+    plain version, ``torch.var_mean`` and the bound, summed per net over
+    one forward's launches.  Returns ({net: (kernel, plain, var_mean,
+    bound ms)}, the largest fp32 error at mean 0)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    shapes = sorted({s for c in counts.values() for s in c})
+    times, worst, routes = {}, {}, {}
+    for shape in shapes:
+        for dtype, mean, std in ((torch.float32, 0.0, 0.5),
+                                 (torch.bfloat16, 0.0, 0.5),
+                                 (torch.float32, 1000.0, 1.0)):
+            x = (torch.randn(shape, generator=gen, device=dev) * std + mean) \
+                .to(dtype)
+            pivot = x[0, :, 0, 0].float().contiguous()
+            m, v = bs.bn_stats(x, pivot)
+            torch.cuda.synchronize()
+            rm, rv = bs._reference(x, pivot)
+            err = max((m - rm).abs().max().item(),
+                      (v - rv).abs().max().item())
+            tol = 2e-5 if mean == 0.0 else 1e-4
+            check(math.isfinite(err) and err <= tol,
+                  f"[zoo_bn] bn_stats disagrees with plain version at "
+                  f"{shape} {dtype} mean {mean}: {err}")
+            _, plan = bn_first_pivot_same(bs, x, 1, m, v)
+            key = (str(dtype)[6:], mean)
+            worst[key] = max(worst.get(key, 0.0), err)
+            route = (f"{'wide' if plan['wide'] else 'rows'} V={plan['vec']}"
+                     f" S={plan['splits']}"
+                     f"{' cluster' if plan['cluster'] else ''}")
+            routes[route] = routes.get(route, 0) + 1
+        x = (torch.randn(shape, generator=gen, device=dev) * 0.5)
+        pivot = x[0, :, 0, 0].contiguous()
+        k = device_ms(lambda: bs.bn_stats(x, bs.FIRST))
+        pl = device_ms(lambda: bs._reference(x, pivot))
+        lib = device_ms(lambda: torch.var_mean(x, dim=(0, 2, 3),
+                                               unbiased=False))
+        bound, _ = bn_stats_bound_ms(shape, torch.float32)
+        times[shape] = (k, pl, lib, bound)
+        log(f"[zoo_bn] {shape}: kernel {k:.4f} ms, plain {pl:.4f}, var_mean "
+            f"{lib:.4f}, bound {bound:.4f} ({bound / k:.2f} of it)")
+    log(f"[zoo_bn] {len(shapes)} distinct BatchNorm inputs, each in fp32 "
+        f"and bf16 at mean 0 and fp32 at mean 1000: max_abs_err "
+        + ", ".join(f"{d} mean {m:g} {e:.3e}" for (d, m), e in
+                    sorted(worst.items()))
+        + f" (tol 2e-5, 1e-4 at mean 1000); own pivot == explicit, "
+        f"bitwise, at every case; plans {routes}")
+    sums = {}
+    for name, c in counts.items():
+        sums[name] = [sum(times[s][i] * n for s, n in c.items())
+                      for i in range(4)]
+        k, pl, lib, bound = sums[name]
+        log(f"[zoo_bn] {name}: one batch-{TRAIN_BATCH} forward's "
+            f"{sum(c.values())} launches ({len(c)} shapes): kernel "
+            f"{k:.4f} ms, plain {pl:.4f} ms, var_mean {lib:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes; {bound / k:.3f} of it); on {card}")
+    return sums, worst[("float32", 0.0)]
+
+
+def phase_zoo(bs, card):
+    """Phase 28: (a) the nine nets served through benchmark_score.py's
+    loop, (b) Inception-v3, DenseNet-121 and MobileNet v2 1.0 trained,
+    (c) the bn-stats kernel at their BatchNorm inputs.  Returns the
+    bn-stats record's additions: the launches of (b)'s warm and timed
+    steps and (c)'s sums per net."""
+    import mxnet_tpu_torch as mx
+    t_start = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    paths, cpu_s = {}, 0.0
+    for i, name in enumerate(ZOO_SERVE):
+        paths[name], s = _zoo_serve(mx, name, card, seed=100 + i)
+        cpu_s += s
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches, counts = 0, {}
+    for name in ZOO_TRAIN:
+        n, counts[name], s = _zoo_train(bs, name, paths[name], card)
+        launches += n
+        cpu_s += s
+        gc.collect()
+        torch.cuda.empty_cache()
+    sums, err = _zoo_bn_kernel(bs, counts, card)
+    wall = time.perf_counter() - t_start
+    log(f"[zoo] phase 28 wall time {wall:.1f} s, of which {cpu_s:.1f} s the "
+        f"CPU plain runs the card is held against ({wall - cpu_s:.1f} s "
+        f"without them); {launches} bn-stats launches in (b)'s warm and "
+        f"timed steps")
+    return {"zoo_launches": launches, "zoo_max_abs_err": err,
+            "zoo": {name: dict(zip(("ms", "plain_ms", "library_ms",
+                                    "bound_ms"), sums[name]),
+                               launches_per_forward=ZOO_TRAIN[name])
+                    for name in ZOO_TRAIN}}
+
+
 T_START = time.perf_counter()
 
 
@@ -4895,6 +5288,8 @@ def main():
     # slice 15: decode serving
     dec_rowdot, dec_attention, record["decode_launches"], _ = \
         phase_decode(card)
+    # slice 18: the rest of the vision model zoo
+    bn.update(phase_zoo(bs, card))
     log(f"[smoke] wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [record, rtc_record, bn, bn_cl, dec_rowdot,
                                   dec_attention]}), flush=True)

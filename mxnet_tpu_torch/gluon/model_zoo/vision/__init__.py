@@ -1,10 +1,28 @@
 """Vision model zoo of the port (counterpart of
-``mxnet_tpu/gluon/model_zoo/vision/__init__.py``).  The ResNets are
-ported; the zoo's other families are not yet (ROADMAP.md, queue 1)."""
+``mxnet_tpu/gluon/model_zoo/vision/__init__.py``): the 34 classification
+nets of the JAX package's ``get_model``, under the same names, each
+uninitialised (``pretrained=True`` raises) and built on the current
+context (the GPU) unless a ``device`` or a ``with mx.cpu():`` scope says
+otherwise."""
+from .alexnet import *  # noqa: F401,F403
+from .densenet import *  # noqa: F401,F403
+from .inception import *  # noqa: F401,F403
+from .mobilenet import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
-from .resnet import (resnet18_v1, resnet18_v2, resnet34_v1,  # noqa: F401
-                     resnet34_v2, resnet50_v1, resnet50_v2, resnet101_v1,
-                     resnet101_v2, resnet152_v1, resnet152_v2)
+from .squeezenet import *  # noqa: F401,F403
+from .vgg import *  # noqa: F401,F403
+from .alexnet import alexnet
+from .densenet import densenet121, densenet161, densenet169, densenet201
+from .inception import inception_v3
+from .mobilenet import (mobilenet0_5, mobilenet0_25, mobilenet0_75,
+                        mobilenet1_0, mobilenet_v2_0_5, mobilenet_v2_0_25,
+                        mobilenet_v2_0_75, mobilenet_v2_1_0)
+from .resnet import (resnet18_v1, resnet18_v2, resnet34_v1, resnet34_v2,
+                     resnet50_v1, resnet50_v2, resnet101_v1, resnet101_v2,
+                     resnet152_v1, resnet152_v2)
+from .squeezenet import squeezenet1_0, squeezenet1_1
+from .vgg import (vgg11, vgg11_bn, vgg13, vgg13_bn, vgg16, vgg16_bn, vgg19,
+                  vgg19_bn)
 
 _MODELS = {
     "resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
@@ -13,11 +31,25 @@ _MODELS = {
     "resnet18_v2": resnet18_v2, "resnet34_v2": resnet34_v2,
     "resnet50_v2": resnet50_v2, "resnet101_v2": resnet101_v2,
     "resnet152_v2": resnet152_v2,
+    "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+    "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+    "vgg19_bn": vgg19_bn,
+    "alexnet": alexnet,
+    "densenet121": densenet121, "densenet161": densenet161,
+    "densenet169": densenet169, "densenet201": densenet201,
+    "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+    "inceptionv3": inception_v3,
+    "mobilenet1.0": mobilenet1_0, "mobilenet0.75": mobilenet0_75,
+    "mobilenet0.5": mobilenet0_5, "mobilenet0.25": mobilenet0_25,
+    "mobilenetv2_1.0": mobilenet_v2_1_0,
+    "mobilenetv2_0.75": mobilenet_v2_0_75,
+    "mobilenetv2_0.5": mobilenet_v2_0_5,
+    "mobilenetv2_0.25": mobilenet_v2_0_25,
 }
 
 
 def get_model(name, **kwargs):
-    """A model by name (``device=None`` means the GPU)."""
+    """A model by name (``device=None`` means the current context)."""
     name = name.lower()
     if name not in _MODELS:
         raise ValueError(

@@ -1,8 +1,9 @@
 """Plain PyTorch counterparts of the JAX package's layer ops.
 
-``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm`` and
-``LayerNorm``/``softmax`` come from ``mxnet_tpu/ops/nn.py`` (:33, :88, :179,
-:267, :369, :434), ``Activation`` from ``mxnet_tpu/ops/elemwise.py`` (:156),
+``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
+``BatchNorm`` and ``LayerNorm``/``softmax`` come from ``mxnet_tpu/ops/nn.py``
+(:33, :88, :119, :179, :267, :369, :434), ``Activation`` from
+``mxnet_tpu/ops/elemwise.py`` (:156),
 ``Flatten`` and ``Embedding`` from ``mxnet_tpu/ops/matrix.py`` (:80, :288).
 XLA computed these outside any Pallas kernel, so here they stay torch
 operators (cuDNN convolutions, inference normalisation and cuBLAS
@@ -16,8 +17,11 @@ hands torch a ``permute`` view of the data (and of the weight, stored
 ``(num_filter, *kernel, C/g)`` as there), which is a tensor in
 ``torch.channels_last`` memory format: cuDNN reads it as it lies and
 returns the same format, so the permuted-back output is contiguous in
-the caller's layout and nothing is copied.  Pooling over 1-D and 3-D
-data is not ported (ROADMAP.md, queue 1 item 6).
+the caller's layout and nothing is copied.  ``Deconvolution`` (the
+transposed convolution) takes the weight ``(C, num_filter / num_group,
+*kernel)``, ``(C, *kernel, num_filter / num_group)`` channel-last, and
+runs on torch's ``conv_transpose``.  Pooling takes 1-, 2- and 3-D
+windows.
 """
 from __future__ import annotations
 
@@ -31,11 +35,15 @@ from ..base import parse_bool, parse_float, parse_int, parse_tuple, \
 from . import bn_stats as _bs
 from .registry import register
 
-__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
+__all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
+           "batch_norm",
            "update_moving_stats", "activation", "flatten", "layer_norm",
            "softmax", "embedding", "ctc_loss"]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -98,6 +106,24 @@ def _to_channel_first(x, ax):
     return x if ax == 1 else x.movedim(ax, 1)
 
 
+def _channel_first_call(op, data, weight, bias, layout, *args):
+    """``op(x, w, bias, *args)`` (a torch convolution) on channel-first
+    views of ``data`` and ``weight``, whose channel axis is the second or
+    the last; the output in ``data``'s layout.  In bf16 and fp16 the bias
+    is added to the rounded output, as :func:`fully_connected` adds it."""
+    nd = data.dim() - 2
+    ax = _channel_axis(layout, data.dim())
+    if ax not in (1, nd + 1):
+        raise ValueError(f"layout {layout!r}: the channel axis must be "
+                         f"second or last")
+    x, w = _to_channel_first(data, ax), _to_channel_first(weight, ax)
+    late = bias is not None and data.dtype in _LOW
+    out = op(x, w, None if late else bias, *args)
+    if late:
+        out = out + bias.reshape((-1,) + (1,) * nd)
+    return out if ax == 1 else out.movedim(1, ax)
+
+
 def convolution(data, weight, bias=None, stride=None, pad=None, dilate=None,
                 num_group=1, layout=None):
     """N-d convolution with symmetric zero padding.  Channel-first data
@@ -106,18 +132,26 @@ def convolution(data, weight, bias=None, stride=None, pad=None, dilate=None,
     ``(num_filter, *kernel, C/num_group)``, and gives channel-last
     output."""
     nd = data.dim() - 2
-    ax = _channel_axis(layout, data.dim())
-    if ax not in (1, nd + 1):
-        raise ValueError(f"layout {layout!r}: the channel axis must be "
-                         f"second or last")
-    x, w = _to_channel_first(data, ax), _to_channel_first(weight, ax)
-    late = bias is not None and data.dtype in _LOW   # as fully_connected
-    out = _CONV[nd](x, w, None if late else bias,
-                    _tuple(stride, nd, 1), _tuple(pad, nd, 0),
-                    _tuple(dilate, nd, 1), int(num_group))
-    if late:
-        out = out + bias.reshape((-1,) + (1,) * nd)
-    return out if ax == 1 else out.movedim(1, ax)
+    return _channel_first_call(_CONV[nd], data, weight, bias, layout,
+                               _tuple(stride, nd, 1), _tuple(pad, nd, 0),
+                               _tuple(dilate, nd, 1), int(num_group))
+
+
+def deconvolution(data, weight, bias=None, stride=None, pad=None,
+                  dilate=None, adj=None, num_group=1, layout=None):
+    """N-d transposed convolution, the gradient of :func:`convolution`
+    with respect to its data: each output axis is ``(in - 1) * stride -
+    2 * pad + dilate * (kernel - 1) + adj + 1`` long.  Channel-first data
+    ``(N, C, *spatial)`` takes the weight ``(C, num_filter / num_group,
+    *kernel)``; channel-last data ``(N, *spatial, C)`` the weight ``(C,
+    *kernel, num_filter / num_group)`` (the JAX op permutes both by the
+    same axes, ``mxnet_tpu/ops/nn.py:127-138``), and gives channel-last
+    output."""
+    nd = data.dim() - 2
+    return _channel_first_call(_CONV_T[nd], data, weight, bias, layout,
+                               _tuple(stride, nd, 1), _tuple(pad, nd, 0),
+                               _tuple(adj, nd, 0), int(num_group),
+                               _tuple(dilate, nd, 1))
 
 
 def _pool_pads(shape, kernel, stride, pad, convention):
@@ -140,52 +174,60 @@ def _padded(x, pads, value=0.0):
 
 
 def _window_sum(x, kernel, stride, pads):
-    """Sum over each window of ``x`` zero-padded by ``pads``."""
-    return F.avg_pool2d(_padded(x, pads), kernel, stride,
-                        divisor_override=1)
+    """Sum over each window of ``x`` zero-padded by ``pads`` (1-D as 2-D
+    windows one row high: ``avg_pool1d`` takes no divisor)."""
+    x = _padded(x, pads)
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
 
 
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             pooling_convention="valid", stride=None, pad=None,
             count_include_pad=True, layout=None):
-    """Max/avg/sum pooling over H and W of NCHW or NHWC data; global
-    pooling over the spatial axes of 1-D, 2-D and 3-D data.
+    """Max/avg/sum pooling over the 1, 2 or 3 spatial axes of
+    channel-first (NCW/NCHW/NCDHW) or channel-last (NWC/NHWC/NDHWC) data,
+    windowed or global.
 
     Padding is filled with the reduction's identity (-inf for max, 0 for
     the sums); ``avg`` divides by the window size when
     ``count_include_pad`` (extra ``"full"`` padding included, as the
-    reference does) and by the count of real elements otherwise.  NHWC
-    pools a ``channels_last`` view, whose format torch's pooling and
-    padding keep, and returns NHWC."""
+    reference does) and by the count of real elements otherwise.
+    Channel-last data pools a channel-first view (``channels_last`` in
+    2-D, a format torch's pooling and padding keep) and returns
+    contiguous channel-last data."""
     if pool_type not in ("max", "avg", "sum"):
         raise ValueError(f"unknown pool_type {pool_type!r}")
-    if parse_bool(global_pool) and data.dim() in (3, 4, 5):
-        ax = _channel_axis(layout, data.dim())
+    if data.dim() not in (3, 4, 5):
+        raise ValueError(f"pooling takes 1-, 2- or 3-D data with batch and "
+                         f"channel axes, got {tuple(data.shape)}")
+    nd = data.dim() - 2
+    ax = _channel_axis(layout, data.dim())
+    if parse_bool(global_pool):
         spatial = tuple(i for i in range(1, data.dim()) if i != ax)
         reduce = {"max": torch.amax, "avg": torch.mean, "sum": torch.sum}
         return reduce[pool_type](data, dim=spatial, keepdim=True)
-    if data.dim() != 4:
-        raise NotImplementedError(
-            "the port pools 2-D (NCHW/NHWC) data only; windowed 1-D and "
-            "3-D pooling wait for ROADMAP.md queue 1 item 6")
-    ax = _channel_axis(layout, 4)
-    if ax not in (1, 3):
-        raise ValueError(f"layout {layout!r}: pooling takes NCHW or NHWC")
+    if ax not in (1, nd + 1):
+        raise ValueError(f"layout {layout!r}: the channel axis must be "
+                         f"second or last")
     x = _to_channel_first(data, ax)
-    out = _pool2d(x, _tuple(kernel, 2, 1), _tuple(stride, 2, 1),
-                  _tuple(pad, 2, 0), pool_type, pooling_convention,
-                  count_include_pad)
-    return out if ax == 1 else out.movedim(1, ax)
+    out = _pool(x, _tuple(kernel, nd, 1), _tuple(stride, nd, 1),
+                _tuple(pad, nd, 0), pool_type, pooling_convention,
+                count_include_pad)
+    # 1-D has no channels-last format, and 3-D sums lose it: one copy
+    return out if ax == 1 else out.movedim(1, ax).contiguous()
 
 
-def _pool2d(x, kernel, stride, pad, pool_type, convention,
-            count_include_pad):
+def _pool(x, kernel, stride, pad, pool_type, convention, count_include_pad):
     pads = _pool_pads(x.shape[2:], kernel, stride, pad, convention)
     if pool_type == "max":
+        pool = _MAX_POOL[len(kernel)]
         if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
             # torch pads with -inf itself: no padded copy of the input
-            return F.max_pool2d(x, kernel, stride, pad)
-        return F.max_pool2d(_padded(x, pads, float("-inf")), kernel, stride)
+            return pool(x, kernel, stride, pad)
+        return pool(_padded(x, pads, float("-inf")), kernel, stride)
     s = _window_sum(x, kernel, stride, pads)
     if pool_type == "sum":
         return s
@@ -341,17 +383,40 @@ def _convolution_op(data, weight, *bias, kernel=None, stride=None,
                        layout)
 
 
+@register("Deconvolution")
+def _deconvolution_op(data, weight, *bias, kernel=None, stride=None,
+                      dilate=None, pad=None, adj=None, target_shape=None,
+                      num_filter=None, num_group=1, workspace=512,
+                      no_bias=True, cudnn_tune=None, cudnn_off=False,
+                      layout=None):
+    """MXNet's ``Deconvolution``; ``no_bias`` defaults to True, unlike
+    ``Convolution``'s.  ``target_shape`` (MXNet derives pad and adj from
+    it; the JAX op takes it and reads nothing of it) is not ported: a
+    nonzero one raises."""
+    if any(parse_tuple(target_shape) or ()):
+        raise NotImplementedError(
+            "Deconvolution(target_shape=...) is not ported (ROADMAP.md, "
+            "queue 1 item 2); give pad and adj")
+    nd = data.dim() - 2
+    b = bias[0] if bias and not parse_bool(no_bias, True) else None
+    return deconvolution(data, weight, b, parse_tuple(stride, nd),
+                         parse_tuple(pad, nd), parse_tuple(dilate, nd),
+                         parse_tuple(adj, nd), parse_int(num_group, 1),
+                         layout)
+
+
 @register("Pooling")
 def _pooling_op(data, kernel=None, pool_type="max", global_pool=False,
                 cudnn_off=False, pooling_convention="valid", stride=None,
                 pad=None, p_value=2, count_include_pad=True, layout=None):
     """``lp`` pools ``sum(|x|^p)^(1/p)``; the others are :func:`pooling`."""
+    nd = data.dim() - 2
     kw = dict(global_pool=parse_bool(global_pool),
               pooling_convention=str(pooling_convention),
-              stride=parse_tuple(stride, 2), pad=parse_tuple(pad, 2),
+              stride=parse_tuple(stride, nd), pad=parse_tuple(pad, nd),
               count_include_pad=parse_bool(count_include_pad, True),
               layout=layout)
-    kernel = parse_tuple(kernel, 2)
+    kernel = parse_tuple(kernel, nd)
     if pool_type != "lp":
         return pooling(data, kernel, pool_type, **kw)
     p = parse_float(p_value, 2)

@@ -796,6 +796,7 @@ def _with_bias(default_no_bias):
 LAYER_INPUTS = {
     "FullyConnected": _with_bias(False),
     "Convolution": _with_bias(False),
+    "Deconvolution": _with_bias(True),
     "BatchNorm": lambda a: ["data", "gamma", "beta", "moving_mean",
                             "moving_var"],
     "LayerNorm": lambda a: ["data", "gamma", "beta"],
@@ -845,16 +846,20 @@ def _infer_layer_param_shapes(node, out_specs, var_spec):
         fill("weight", (nh, int(np.prod(dshape[1:])) if flat
                         else int(dshape[-1])))
         fill("bias", (nh,))
-    elif name == "Convolution":
-        kernel = parse_tuple(a.get("kernel"))
+    elif name in ("Convolution", "Deconvolution"):
+        kernel = tuple(parse_tuple(a.get("kernel")))
         nf = parse_int(_literal(a.get("num_filter")))
         ng = parse_int(_literal(a.get("num_group", 1)), 1)
         layout = _literal(a.get("layout"))
         cax = 1 if layout in (None, "None", "") else str(layout).find("C")
-        cin = int(dshape[cax]) // ng
-        # the weight follows the data's layout: (O, I, *k) or (O, *k, I)
-        fill("weight", (nf, cin) + tuple(kernel) if cax == 1
-             else (nf,) + tuple(kernel) + (cin,))
+        cin = int(dshape[cax])
+        # Convolution (O, I / g, *k), Deconvolution (I, O / g, *k); the
+        # weight follows the data's layout: (lead, tail, *k) or (lead, *k,
+        # tail)
+        lead, tail = (nf, cin // ng) if name == "Convolution" \
+            else (cin, nf // ng)
+        fill("weight", (lead, tail) + kernel if cax == 1
+             else (lead,) + kernel + (tail,))
         fill("bias", (nf,))
     elif name == "BatchNorm":
         c = int(dshape[parse_int(_literal(a.get("axis", 1)), 1)])

@@ -585,6 +585,60 @@ UPDATE_OPS += [
          grad=False),
 ]
 
+# slice 18: Deconvolution and 1-D/3-D Pooling, half in each half of the list
+_DECONV_POOL = [
+    Case("Deconvolution", (("n", (2, 3, 5, 5)), ("n", (3, 4, 3, 3))),
+         {"kernel": (3, 3), "num_filter": 4}),
+    Case("Deconvolution", (("n", (2, 3, 5, 4)), ("n", (3, 4, 3, 3))),
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (1, 0),
+          "num_filter": 4}),
+    Case("Deconvolution", (("n", (2, 3, 5, 5)), ("n", (3, 4, 2, 3))),
+         {"kernel": (2, 3), "dilate": (2, 2), "pad": (1, 0),
+          "num_filter": 4}),
+    Case("Pooling", (("n", (2, 3, 9)),),
+         {"kernel": (3,), "stride": (2,), "pad": (1,), "pool_type": "max"}),
+    Case("Pooling", (("n", (2, 3, 9)),),
+         {"kernel": (3,), "stride": (2,), "pool_type": "avg",
+          "pooling_convention": "full"}),
+    Case("Pooling", (("n", (2, 8, 3)),),
+         {"kernel": (3,), "stride": (2,), "pad": (1,), "pool_type": "avg",
+          "count_include_pad": False, "layout": "NWC"}),
+    Case("Pooling", (("n", (2, 3, 9)),),
+         {"kernel": (2,), "stride": (1,), "pool_type": "sum"}),
+    Case("Pooling", (("n", (2, 3, 9)),),
+         {"kernel": (2,), "stride": (2,), "pool_type": "lp", "p_value": 2}),
+]
+_DECONV_POOL_2 = [
+    Case("Deconvolution", (("n", (2, 4, 5, 5)), ("n", (4, 3, 3, 3))),
+         {"kernel": (3, 3), "stride": (2, 1), "num_filter": 6,
+          "num_group": 2}),
+    Case("Deconvolution", (("n", (2, 3, 5, 5)), ("n", (3, 4, 3, 3)),
+                           ("n", (4,))),
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+          "num_filter": 4, "no_bias": False}),
+    Case("Deconvolution", (("n", (2, 5, 4, 3)), ("n", (3, 3, 3, 4)),
+                           ("n", (4,))),
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (1, 1),
+          "num_filter": 4, "no_bias": False, "layout": "NHWC"}),
+    Case("Pooling", (("n", (2, 2, 5, 6, 5)),),
+         {"kernel": (2, 2, 2), "stride": (2, 2, 2), "pool_type": "max",
+          "pooling_convention": "full"}),
+    Case("Pooling", (("n", (2, 2, 5, 6, 5)),),
+         {"kernel": (3, 3, 3), "stride": (2, 2, 2), "pad": (1, 1, 1),
+          "pool_type": "avg"}),
+    Case("Pooling", (("n", (2, 2, 5, 6, 5)),),
+         {"kernel": (3, 3, 3), "stride": (2, 2, 2), "pad": (1, 1, 1),
+          "pool_type": "avg", "count_include_pad": False,
+          "pooling_convention": "full"}),
+    Case("Pooling", (("n", (2, 5, 4, 6, 2)),),
+         {"kernel": (2, 2, 2), "stride": (1, 2, 1), "pool_type": "sum",
+          "layout": "NDHWC"}),
+    Case("Pooling", (("n", (2, 2, 4, 5, 3)),),
+         {"global_pool": True, "pool_type": "max", "kernel": (1, 1, 1)}),
+]
+OP_CASES[len(OP_CASES) // 2:len(OP_CASES) // 2] = _DECONV_POOL
+OP_CASES += _DECONV_POOL_2
+
 # ---------------------------------------------------------------- image ops
 # the deterministic cases of ``ops/image_ops.py`` (kept out of OP_CASES, so
 # that no case moves between the two test files that split that list);

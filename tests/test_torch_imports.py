@@ -32,7 +32,8 @@ def _imported_roots(path):
 def test_no_jax_import_in_port_sources():
     files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "flash_bench.py",
-              ROOT / "rowdot_bench.py", ROOT / "paged_attention_bench.py"]
+              ROOT / "rowdot_bench.py", ROOT / "paged_attention_bench.py",
+              ROOT / "zoo_parity_probe.py"]
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}:{line} imports {name}"
            for f in files for name, line in _imported_roots(f)

@@ -11,10 +11,9 @@ weight shape and gradient; ResNet v1 and v2 NHWC logits against the JAX
 NHWC nets with the weights carried through a ``.params`` file, and three
 SGD steps of ResNet-18/50 v1 NHWC at batch 4 under the training tolerance
 rule;
-the symbolic NHWC graph (``infer_shape``, ``Module``).
-
-Not here: ``Deconvolution`` NHWC (``tests/test_layout_nhwc.py:95``),
-which waits for the transposed convolution (ROADMAP.md queue 1 item 6).
+the symbolic NHWC graph (``infer_shape``, ``Module``); ``Deconvolution``
+NHWC (``tests/test_layout_nhwc.py:95``'s case) against the JAX op and
+against the NCHW op on the transposed data, and 1-D NWC pooling.
 """
 import jax
 import jax.numpy as jnp
@@ -142,13 +141,46 @@ def test_pooling_nhwc_matches_jax(kw):
 
 
 def test_layouts_left_for_later_raise():
-    """1-D and 3-D pooling wait for ROADMAP queue 1 item 6; a layout whose
-    channel is neither second nor last is refused."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ops.pooling(torch.zeros(2, 5, 3), (2,), layout="NWC")
+    """1-D pooling over NWC data (once left for later) matches the JAX op,
+    output and input gradient; a layout whose channel is neither second
+    nor last is refused."""
+    x = _rng().randn(2, 9, 5).astype("float32")
+    kw = dict(kernel=(3,), stride=(2,), pad=(1,), pool_type="avg",
+              count_include_pad=False)
+    ref, vjp = jax.vjp(lambda a: jops.pooling(a, layout="NWC", **kw),
+                       jnp.asarray(x))
+    leaf = _leaf(x)
+    out = ops.pooling(leaf, (3,), "avg", stride=(2,), pad=(1,),
+                      count_include_pad=False, layout="NWC")
+    assert out.shape == ref.shape == (2, 5, 5) and out.is_contiguous()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), RTOL,
+                               ATOL)
+    dy = _rng().randn(*ref.shape).astype("float32")
+    out.backward(torch.from_numpy(dy))
+    _grad_close(leaf.grad, vjp(jnp.asarray(dy))[0])
     with pytest.raises(ValueError, match="layout"):
         ops.convolution(torch.zeros(2, 5, 5, 3), torch.zeros(4, 5, 3, 3),
                         layout="NHCW")
+
+
+def test_deconvolution_nhwc_matches_jax():
+    """``tests/test_layout_nhwc.py:95``'s case: NHWC data and the weight
+    ``(C, kh, kw, num_filter)`` against the JAX op in NHWC and against the
+    port's NCHW op on the transposed data and weight."""
+    rng = _rng()
+    x = rng.randn(2, 4, 6, 6).astype("float32")
+    w = rng.randn(4, 3, 3, 3).astype("float32")
+    kw = dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=3)
+    xl, wl = x.transpose(0, 2, 3, 1).copy(), w.transpose(0, 2, 3, 1).copy()
+    ref = np.asarray(jops.deconvolution(jnp.asarray(xl), jnp.asarray(wl),
+                                        layout="NHWC", **kw))
+    y1 = mx.nd.Deconvolution(mx.nd.array(x, ctx=mx.cpu()),
+                             mx.nd.array(w, ctx=mx.cpu()), **kw).asnumpy()
+    y2 = mx.nd.Deconvolution(mx.nd.array(xl, ctx=mx.cpu()),
+                             mx.nd.array(wl, ctx=mx.cpu()), layout="NHWC",
+                             **kw).asnumpy()
+    np.testing.assert_allclose(y2, ref, RTOL, ATOL)
+    np.testing.assert_allclose(y1, y2.transpose(0, 3, 1, 2), RTOL, ATOL)
 
 
 def test_gluon_conv2d_nhwc_weight_shape_and_gradient():

@@ -242,7 +242,7 @@ def test_deferred_layers_and_load_errors(tmp_path):
     with pytest.raises(ValueError, match="layout"):
         get_model("resnet50_v1", layout="HWCN", device="cpu")
     with pytest.raises(ValueError, match="not supported"):
-        get_model("vgg16", device="cpu")
+        get_model("resnet200_v1", device="cpu")
 
 
 # -------------------------------------------------------- .params format
