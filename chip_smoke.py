@@ -341,13 +341,35 @@ beside the backward's bound.  Phase 3 holds and times the forward at phase
    ``torch.var_mean`` and the bound.  The bn-stats record gains
    ``zoo_launches`` ((b)'s warm and timed steps) and ``zoo`` ((c)'s sums).
 
-Phases 4, 6, 9, 11, 17, 18, 22, 27 and 28 print a ``[profile]`` breakdown
+29. SSD-300 VGG16 (``[ssd]``; ``mxnet_tpu_torch/models/ssd.py``, 20
+   classes, 300x300, 7236 anchors, seeded Xavier weights, fp32 with TF32
+   off): (a) the NMS kernel (``csrc/nms.cu``) against its plain version on
+   the card, keep masks and output rows bit for bit, for ``box_nms`` at
+   (8, 7236, 6) with ids on and off, forced suppression on and off and
+   topk -1 and 400, and for ``MultiBoxDetection`` at ``detect``'s shapes
+   for batch 8; warm and cold ms of ``detect``'s call and of the full
+   ``box_nms`` call beside the plain version and the bound; (b) served
+   through ``detect`` at batch 1 and 8 (the logits at batch 2 within
+   1e-4 of the largest of the port's CPU plain run, anchors equal; one
+   warm and 20 timed calls a batch: images/s, peak memory; the NMS
+   kernel's launches counted: its main path); (c) ``bench_ssd_train``'s
+   b8 with ``MultiBoxLoss`` and SGD (lr 0.005, momentum 0.9, as
+   ``example/ssd/train.py``), two boxes an image: phase 8's parity for 2
+   steps at batch 2 (the reversed CPU run without oneDNN), then 3 warm and
+   10 timed steps at batch 8 (step ms, images/s, peak memory) and a
+   ``[profile]`` of one step with the MultiBox work's share; (d) the same
+   under ``amp.init()`` (b8_amp; the class head in bf16); (e) trained
+   from a ``.rec`` of coloured-box JPEGs written at run time, through
+   ``ImageDetRecordIter``.  Zero bn-stats launches (no BatchNorm).
+
+Phases 4, 6, 9, 11, 17, 18, 22, 27, 28 and 29 print a ``[profile]`` breakdown
 of one micro-batch or step.  The last two lines are the kernels' JSON record and
 the device line.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import importlib
 import json
@@ -2231,15 +2253,15 @@ def phase_nd(fa, bs, card):
     calls."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import registry
-    from mxnet_tpu_torch.test_utils import (IMAGE_CASES, IMAGE_RANDOM_CASES,
-                                            OP_CASES, RANDOM_CASES,
-                                            UPDATE_OPS,
+    from mxnet_tpu_torch.test_utils import (DETECTION_CASES, IMAGE_CASES,
+                                            IMAGE_RANDOM_CASES, OP_CASES,
+                                            RANDOM_CASES, UPDATE_OPS,
                                             image_random_outcome_ok,
                                             make_inputs, run_case)
     gpu = mx.gpu(0)
     t0 = time.perf_counter()
     ran, compared, worst = set(), 0, (0.0, "")
-    for case in OP_CASES + IMAGE_CASES:
+    for case in OP_CASES + IMAGE_CASES + DETECTION_CASES:
         got, ggot, where = run_case(mx.nd, mx.autograd, case, gpu)
         want, gwant, _ = run_case(mx.nd, mx.autograd, case, mx.cpu())
         check(all(c == gpu for c in where),
@@ -5213,6 +5235,610 @@ def phase_zoo(bs, card):
                     for name in ZOO_TRAIN}}
 
 
+
+# --------------------------------------------------------------- slice 19
+# phase 29: SSD-300 VGG16 detection, served and trained
+SSD_CLASSES = 20
+SSD_IMAGE = (3, 300, 300)
+# 4 anchors a position over 37^2 + 18^2 + 9^2 + 5^2 + 3^2 + 1 positions
+# (Gluon's floor pooling takes 75 to 37)
+SSD_ANCHORS = 7236
+SSD_OPT = {"learning_rate": 0.005, "momentum": 0.9}   # example/ssd/train.py
+SSD_BATCH = 8                          # bench_ssd_train's b8 and b8_amp
+SSD_SERVE = (1, 8)
+SSD_SERVE_ITERS = 20
+SSD_PARITY_BATCH = 2
+SSD_FED_IMAGES = 64                    # 8 batches of SSD_BATCH
+# detect's NMS settings (mxnet_tpu_torch/models/ssd.py detect)
+SSD_NMS_THRESH, SSD_NMS_TOPK = 0.45, 400
+# fp32 operations of one pair's IoU and test in csrc/nms.cu: 4 max/min,
+# 2 differences, 2 clamps, the product, the union's add and subtract, the
+# division, the comparison
+NMS_PAIR_OPS = 13
+
+
+def _ssd_labels(rng, batch):
+    """``bench.py:403-406``: two ground-truth boxes an image,
+    ``[cls, x1, y1, x2, y2]``."""
+    lab = rng.rand(batch, 2, 5).astype("float32")
+    lab[..., 0] = rng.randint(0, SSD_CLASSES, (batch, 2))
+    lab[..., 3:] = np.clip(lab[..., 1:3] + 0.3, 0, 1)
+    return lab
+
+
+@contextlib.contextmanager
+def plain_nms(nms):
+    """Inside the block the detection operators take the plain NMS, on the
+    device their tensors lie on (the kernel's reference on the same
+    inputs; no launch counted)."""
+    from mxnet_tpu_torch.ops import contrib_ops as co
+    real = co.greedy_nms
+
+    def plain(boxes, valid, thresh, cls_id=None, topk=-1):
+        b, n = valid.shape
+        k = n if topk is None or topk <= 0 else min(n, topk)
+        keep = nms._reference(boxes[:, :k], valid[:, :k], thresh,
+                              None if cls_id is None else cls_id[:, :k])
+        return torch.cat([keep, keep.new_zeros((b, n - k))], dim=1)
+
+    co.greedy_nms = plain
+    try:
+        yield
+    finally:
+        co.greedy_nms = real
+
+
+@contextlib.contextmanager
+def nms_calls():
+    """Records the arguments of every ``greedy_nms`` call the detection
+    operators make inside the block."""
+    from mxnet_tpu_torch.ops import contrib_ops as co
+    real, calls = co.greedy_nms, []
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    co.greedy_nms = recorded
+    try:
+        yield calls
+    finally:
+        co.greedy_nms = real
+
+
+@contextlib.contextmanager
+def no_plain_nms_on_cuda(nms):
+    """Fails the run if the plain NMS sees a CUDA tensor inside the
+    block."""
+    seen, real = [], nms._reference
+
+    def guarded(boxes, *args, **kwargs):
+        if boxes.is_cuda:
+            seen.append(tuple(boxes.shape))
+        return real(boxes, *args, **kwargs)
+
+    nms._reference = guarded
+    try:
+        yield
+    finally:
+        nms._reference = real
+    check(not seen, f"plain NMS ran on CUDA tensors: {seen[:3]}")
+
+
+def nms_bound_ms(valid, ids):
+    """Least time for greedy NMS over ``valid (B, n)`` (after the topk
+    cut): read the boxes, the mask and the ids once, write the keep mask;
+    ``NMS_PAIR_OPS`` fp32 operations for each pair of valid rows of an
+    image (what these inputs need: invalid rows take part in no pair)."""
+    b, n = valid.shape
+    v = valid.sum(dim=1).double()
+    ops = float((v * (v - 1) / 2).sum()) * NMS_PAIR_OPS
+    nbytes = b * n * (16 + 1 + 1 + (4 if ids else 0))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def nms_passes_ms(fn, calls=50):
+    """Device ms a call of the NMS kernel's two passes: each kernel's mean
+    over the records of a ``torch.profiler`` trace of ``calls`` calls,
+    after as many under the profiler's warm-up (a trace can lose its first
+    ~20 kernel records, see :func:`profile_train_step`; the mean is over
+    the records it kept)."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    warm_then_record = torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                               repeat=1)
+    with torch.profiler.profile(activities=acts,
+                                schedule=warm_then_record) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    parts = {}
+    for name in ("nms_mask_kernel", "nms_scan_kernel"):
+        found = [e for e in kernels if name in e.key]
+        n = sum(e.count for e in found)
+        if n:
+            parts[name[:-7]] = (sum(e.self_device_time_total
+                                    for e in found) / 1e3 / n, n)
+    if not parts:
+        return "passes not measured (no kernel records in the trace)"
+    return ", ".join(f"{k} {ms:.4f} ms ({n} records)"
+                     for k, (ms, n) in parts.items())
+
+
+def cold_ms(fn, iters=10):
+    """Device ms of one call with the 50 MB L2 flushed before it (a 256 MB
+    write), the stream held by a sleep kernel while the host enqueues the
+    call, so the events see the device's time alone."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def _ssd_net(mx, ssd):
+    """SSD-300 VGG16 (20 classes) on the card with seeded
+    ``train_imagenet.py`` Xavier weights; its ``.params`` file."""
+    ctx = mx.gpu(0)
+    net = ssd.ssd_300_vgg16(num_classes=SSD_CLASSES)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx,
+                   generator=torch.Generator(device="cuda").manual_seed(29))
+    net(mx.nd.zeros((1,) + SSD_IMAGE, ctx=ctx))
+    path = BUILD / "ssd300.params"
+    net.save_parameters(str(path))
+    check(all(t.is_cuda for t in net._collect_params_with_prefix().values()),
+          "[ssd] parameters not on the card")
+    return net, path
+
+
+def _ssd_nms_kernel(nms, co, net, card):
+    """(a) The NMS kernel against its plain version on the card, keep
+    masks and output rows bit for bit: ``box_nms`` at (8, 7236, 6), ids on
+    and off, forced suppression on and off, topk -1 and 400; and
+    ``MultiBoxDetection`` at ``detect``'s shapes for batch 8.  Then the
+    kernel's warm and cold ms at ``detect``'s call and at ``box_nms``'s
+    full (8, 7236) call, beside the plain version and the bound.  Returns
+    the kernel's record (without its launches)."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(30)
+    d = rng.rand(SSD_BATCH, SSD_ANCHORS, 6).astype("float32")
+    d[..., 0] = rng.randint(0, SSD_CLASSES, (SSD_BATCH, SSD_ANCHORS))
+    d[..., 1] = np.round(d[..., 1], 2)                # ties in the scores
+    d[..., 2:4] *= 0.8
+    d[..., 4:] = d[..., 2:4] + rng.rand(SSD_BATCH, SSD_ANCHORS, 2) * 0.2
+    data = torch.from_numpy(d).to(dev)
+    mismatched, kept, calls = 0, [], {}
+    for ids in (-1, 0):
+        for force in (False, True):
+            for topk in (-1, SSD_NMS_TOPK):
+                kw = dict(id_index=ids, force_suppress=force, topk=topk,
+                          overlap_thresh=SSD_NMS_THRESH)
+                with nms_calls() as seen:
+                    got = co.box_nms(data, **kw)
+                with plain_nms(nms):
+                    want = co.box_nms(data, **kw)
+                torch.cuda.synchronize()
+                mismatched += int((got != want).any(dim=-1).sum())
+                kept.append(int((got[..., 0] != -1).sum()))
+                calls[(ids, force, topk)] = seen[0]
+    x = torch.from_numpy(np.random.RandomState(31).rand(
+        SSD_BATCH, *SSD_IMAGE).astype("float32")).to(dev)
+    with torch.no_grad():
+        cls_pred, loc_pred, anchor = net(x)
+    probs = torch.softmax(cls_pred.transpose(1, 2), dim=1)
+    kw = dict(nms_threshold=SSD_NMS_THRESH, nms_topk=SSD_NMS_TOPK)
+    with nms_calls() as seen:
+        got = co.multibox_detection(probs, loc_pred, anchor, **kw)
+    with plain_nms(nms):
+        want = co.multibox_detection(probs, loc_pred, anchor, **kw)
+    torch.cuda.synchronize()
+    det_rows = int((got != want).any(dim=-1).sum())
+    check(mismatched == 0 and det_rows == 0,
+          f"[ssd] NMS kernel disagrees with its plain version: {mismatched} "
+          f"box_nms rows, {det_rows} MultiBoxDetection rows")
+    log(f"[ssd] (a) NMS kernel vs plain on the card, bit for bit: box_nms "
+        f"at {tuple(data.shape)} in 8 settings (ids on/off, forced "
+        f"suppression on/off, topk -1/{SSD_NMS_TOPK}; {kept} rows kept) "
+        f"and MultiBoxDetection at detect's shapes for batch {SSD_BATCH} "
+        f"({int((got[..., 0] != -1).sum())} rows kept): 0 rows differ")
+
+    def time_call(args, kwargs, what):
+        boxes, valid, thresh, cls_id, topk = args
+        k = valid.shape[1] if topk <= 0 else min(valid.shape[1], topk)
+        cut = (boxes[:, :k].contiguous(), valid[:, :k].contiguous(), thresh,
+               None if cls_id is None else cls_id[:, :k].contiguous())
+        keep = nms.greedy_nms(*cut)
+        want = nms._reference(*cut)
+        check(torch.equal(keep, want),
+              f"[ssd] NMS keep mask differs at {what}")
+        ms = device_ms(lambda: nms.greedy_nms(*cut))
+        cold = cold_ms(lambda: nms.greedy_nms(*cut))
+        plain = device_ms(lambda: nms._reference(*cut), iters=2)
+        bound, by = nms_bound_ms(cut[1], cut[3] is not None)
+        n_valid = int(cut[1].sum())
+        passes = nms_passes_ms(lambda: nms.greedy_nms(*cut))
+        log(f"[ssd] NMS {what}: ({cut[1].shape[0]}, {k}) rows, {n_valid} "
+            f"valid, {int(keep.sum())} kept: kernel {ms:.4f} ms warm "
+            f"({passes}), {cold:.4f} ms cold, plain {plain:.4f} ms, bound "
+            f"{bound:.6f} ms ({by}; {bound / ms:.2e} of it); library: none "
+            f"(torch has no greedy NMS); on {card}")
+        return dict(ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bound,
+                    bound_by=by, library_ms=None,
+                    shape=f"({cut[1].shape[0]}, {k}) rows, {n_valid} valid")
+
+    det = time_call(*seen[0], f"MultiBoxDetection at detect's call, batch "
+                               f"{SSD_BATCH}, topk {SSD_NMS_TOPK}")
+    full = time_call(*calls[(0, False, -1)],
+                     f"box_nms at {tuple(data.shape)}, ids, topk -1")
+    return {"name": "nms", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/nms.cu",
+            "replaces": "none: the port's own (the JAX package's "
+                        "_greedy_nms_mask, mxnet_tpu/ops/contrib_ops.py:66, "
+                        "is XLA)",
+            "dtype": "float32", "max_abs_err": 0.0,
+            **{k: det[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "shape")},
+            "box_nms": full}
+
+
+def _ssd_serve(mx, ssd, nms, net, path, card):
+    """(b) ``detect`` on the card: the logits at batch 2 against the
+    port's CPU plain run of the same ``.params`` (1e-4 of each output's
+    largest value, anchors exact), then at each batch of ``SSD_SERVE`` one
+    warm and ``SSD_SERVE_ITERS`` timed calls: images/s and peak memory.
+    This is the NMS kernel's main path.  Returns its launches."""
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(32)
+    x2 = rng.rand(SSD_PARITY_BATCH, *SSD_IMAGE).astype("float32")
+    got = [o.asnumpy() for o in net(mx.nd.array(x2, ctx=ctx))]
+    t0 = time.perf_counter()
+    cpu_net = ssd.ssd_300_vgg16(num_classes=SSD_CLASSES, device="cpu")
+    cpu_net.load_parameters(str(path))
+    with torch.inference_mode():
+        want = [o.numpy() for o in cpu_net(torch.from_numpy(x2))]
+    cpu_s = time.perf_counter() - t0
+    del cpu_net
+    check(got[0].shape == (SSD_PARITY_BATCH, SSD_ANCHORS, SSD_CLASSES + 1)
+          and got[2].shape == (1, SSD_ANCHORS, 4),
+          f"[ssd] outputs {[g.shape for g in got]}")
+    errs = []
+    for name, g, w in zip(("cls_pred", "loc_pred"), got, want):
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        check(np.isfinite(g).all() and scale > 0 and err <= 1e-4 * scale,
+              f"[ssd] card {name} disagrees with the CPU: {err:.3e} of max "
+              f"{scale:.3e}")
+        errs.append(f"{name} {err:.3e} ({err / scale:.3e} of max "
+                    f"{scale:.3e})")
+    check(np.array_equal(got[2], want[2]), "[ssd] anchors differ")
+    log(f"[ssd] (b) batch {SSD_PARITY_BATCH} card vs CPU plain "
+        f"({cpu_s:.1f} s): {', '.join(errs)} (tol 1e-4 of max); anchors "
+        f"equal, {SSD_ANCHORS} of them")
+    net.hybridize(static_alloc=True)
+    calls = 0
+    with no_plain_nms_on_cuda(nms):
+        nms.greedy_nms.launches = 0              # the main path starts
+        for batch in SSD_SERVE:
+            x = mx.nd.array(rng.rand(batch, *SSD_IMAGE).astype("float32"),
+                            ctx=ctx)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = ssd.detect(net, x)
+            out.wait_to_read()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SSD_SERVE_ITERS):
+                out = ssd.detect(net, x)
+            out.wait_to_read()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            calls += 1 + SSD_SERVE_ITERS
+            peak = torch.cuda.max_memory_allocated()
+            rows = out.asnumpy()
+            check(rows.shape == (batch, SSD_ANCHORS, 6) and
+                  np.isfinite(rows).all() and (rows[..., 0] >= 0).any(),
+                  f"[ssd] detect at batch {batch}: {rows.shape}")
+            log(f"[ssd] (b) served through detect at batch {batch}: "
+                f"{batch * SSD_SERVE_ITERS / dt:.2f} images/s "
+                f"({dt * 1e3 / SSD_SERVE_ITERS:.3f} ms a call, "
+                f"{SSD_SERVE_ITERS} calls), {int((rows[..., 0] >= 0).sum())} "
+                f"detections kept, peak device memory {peak / 2**30:.3f} "
+                f"GiB; on {card}")
+        torch.cuda.synchronize()
+        launches = nms.greedy_nms.launches       # the main path ends
+    check(launches == calls,
+          f"[ssd] {launches} NMS launches for {calls} detect calls")
+    net.hybridize(False)
+    return launches
+
+
+def _ssd_steps(ssd, net, amp_on=False):
+    """``step(x, lab)``: one SGD step of ``example/ssd/train.py``'s loop on
+    a batch on the card (``amp_on``: with ``amp.init_trainer`` and
+    ``amp.scale_loss``, AMP already on); returns the loss."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(SSD_OPT))
+    loss_fn = ssd.MultiBoxLoss()
+    if amp_on:
+        amp.init_trainer(trainer)
+
+    def step(x, lab):
+        with autograd.record():
+            loss = loss_fn(*net(x), lab)[0]
+            if amp_on:
+                with amp.scale_loss(loss, trainer) as scaled:
+                    autograd.backward(scaled)
+        if not amp_on:
+            autograd.backward(loss)
+        trainer.step(x.shape[0])
+        return loss.detach()
+
+    return step
+
+
+def _ssd_timed(step, tag, card):
+    """``WARM_STEPS`` warm and ``TIMED_STEPS`` timed steps: (step ms,
+    peak bytes, losses)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(WARM_STEPS)]
+    gc.collect()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3 / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(l.float()) for l in losses]
+    check(all(math.isfinite(l) for l in losses), f"{tag} losses {losses}")
+    log(f"{tag} batch {SSD_BATCH} {SSD_IMAGE}: {TIMED_STEPS} timed steps "
+        f"{step_ms:.3f} ms each, {SSD_BATCH * 1e3 / step_ms:.2f} images/s, "
+        f"peak device memory {peak / 2**30:.3f} GiB; losses "
+        f"{[round(l, 4) for l in losses]}; on {card}")
+    return step_ms, peak, losses
+
+
+def _ssd_profile(step, step_ms, x, lab, net, card, top=10):
+    """A ``[profile]`` of one training step (after one under the
+    profiler's warm-up): busy ms, idle share, the top kernels; and the
+    device ms of the step's MultiBox work timed alone at its shapes (the
+    six ``MultiBoxPrior`` calls and ``MultiBoxTarget``) beside busy."""
+    from torch.autograd import DeviceType
+    from mxnet_tpu_torch.ops import contrib_ops as co
+    prof, _ = _profile_one_step(step, per_forward=0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and
+               not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    with torch.no_grad():
+        cls_pred, _, anchor = net(x)
+        feats = net._features(x)
+    cls_t = cls_pred.transpose(1, 2).contiguous()
+    target_ms = device_ms(lambda: co.multibox_target(
+        anchor, lab, cls_t, negative_mining_ratio=3.0,
+        overlap_threshold=0.5), iters=20)
+    prior_ms = device_ms(lambda: [co.multibox_prior(
+        f, sizes=s, ratios=r) for f, s, r in zip(feats, net._sizes,
+                                                  net._ratios)], iters=20)
+    if not busy:
+        log(f"[profile] ssd train step: {step_ms:.3f} ms wall; device time "
+            f"not measured (no CUDA events in the trace)")
+        return
+    mb = target_ms + prior_ms
+    log(f"[profile] ssd train step batch {SSD_BATCH}: {step_ms:.3f} ms wall "
+        f"(mean of {TIMED_STEPS}), device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / step_ms:.3f}, {len(kernels)} kernels, "
+        f"{sum(e.count for e in kernels)} launches; MultiBox work timed "
+        f"alone: MultiBoxTarget {target_ms:.3f} ms, six MultiBoxPrior "
+        f"{prior_ms:.3f} ms, {mb / busy:.3f} of busy; NMS none (training "
+        f"runs no NMS); {_kernel_share(kernels, busy)}; on {card}")
+    log(f"[profile] ssd train step convolutions by kind: "
+        f"{_conv_kinds(kernels)}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
+
+
+def _ssd_train_run(ssd, path, x, lab, device, order, onednn=True):
+    """``PARITY_STEPS`` steps at ``SSD_PARITY_BATCH`` from the ``.params``
+    file on ``device``, the batch in ``order``: (losses, step-1
+    gradients, final parameters) by structural name, on the host."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.test_utils import structural_params
+    net = ssd.ssd_300_vgg16(num_classes=SSD_CLASSES, device=device)
+    net.load_parameters(str(path))
+    params = structural_params(net)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(SSD_OPT))
+    loss_fn = ssd.MultiBoxLoss()
+    xs = torch.from_numpy(x[order]).to(device)
+    ls = torch.from_numpy(lab[order]).to(device)
+    losses, grads = [], None
+    with torch.backends.mkldnn.flags(enabled=onednn):
+        for i in range(PARITY_STEPS):
+            with autograd.record():
+                loss = loss_fn(*net(xs), ls)[0]
+            autograd.backward(loss)
+            losses.append(loss.detach().cpu().numpy())
+            if i == 0:
+                # a copy: on the CPU .cpu() is the buffer itself, which
+                # the next step overwrites
+                grads = {k: p.grad_tensor().cpu().numpy().copy()
+                         for k, p in params.items()}
+            trainer.step(xs.shape[0])
+    return losses, grads, {k: p.tensor().detach().cpu().numpy().copy()
+                           for k, p in params.items()}
+
+
+def _ssd_parity(ssd, path):
+    """(c)'s parity: phase 8's rule (:func:`_parity`) for
+    ``PARITY_STEPS`` SGD steps at ``SSD_PARITY_BATCH``, card against the
+    CPU plain path; the other CPU run has the batch reversed and convolves
+    with torch's own CPU kernels in place of oneDNN's, so that each
+    sample's sums change order too, as on the card (as
+    :func:`_zoo_parity` does).  Returns the CPU runs' seconds."""
+    rng = np.random.RandomState(33)
+    x = rng.rand(SSD_PARITY_BATCH, *SSD_IMAGE).astype("float32")
+    lab = _ssd_labels(rng, SSD_PARITY_BATCH)
+    t0 = time.perf_counter()
+    ref = _ssd_train_run(ssd, path, x, lab, "cpu", np.arange(2))
+    other = _ssd_train_run(ssd, path, x, lab, "cpu", np.array([1, 0]),
+                           onednn=False)
+    cpu_s = time.perf_counter() - t0
+    card = _ssd_train_run(ssd, path, x, lab, "cuda", np.arange(2))
+    log(f"[ssd] (c) parity: 2 CPU plain runs of {PARITY_STEPS} SGD steps "
+        f"at batch {SSD_PARITY_BATCH} ({cpu_s:.1f} s; the reversed one "
+        f"without oneDNN)")
+    _parity("[ssd] (c)", ref, [other], card, PARITY_STEPS)
+    return cpu_s
+
+
+def write_det_corpus(directory, n, hw):
+    """``n`` JPEGs of ``hw`` as ``example/ssd/train.py:21-34`` draws its
+    images: one solid rectangle an image on black, its colour channel the
+    class modulo 3, with the packed label ``[2, 5, cls, x1, y1, x2, y2]``,
+    in a ``.rec``; returns its path."""
+    from mxnet_tpu_torch import recordio
+    path = str(Path(directory) / f"ssd_{hw[0]}x{hw[1]}.rec")
+    rng = np.random.RandomState(29)
+    rec = recordio.MXRecordIO(path, "w")
+    for i in range(n):
+        img = np.zeros(hw + (3,), np.uint8)
+        cls = rng.randint(0, SSD_CLASSES)
+        w = rng.randint(hw[1] // 4, hw[1] // 2)
+        h = rng.randint(hw[0] // 4, hw[0] // 2)
+        x0, y0 = rng.randint(0, hw[1] - w), rng.randint(0, hw[0] - h)
+        img[y0:y0 + h, x0:x0 + w, cls % 3] = 255
+        label = np.array([2, 5, cls, x0 / hw[1], y0 / hw[0],
+                          (x0 + w) / hw[1], (y0 + h) / hw[0]], "float32")
+        rec.write(recordio.pack_img(recordio.IRHeader(0, label, i, 0), img,
+                                    quality=DP_QUALITY))
+    rec.close()
+    return path
+
+
+def _ssd_fed(mx, ssd, path, card, train_ms):
+    """(e) SSD-300 trained from a ``.rec`` written here through
+    ``io.ImageDetRecordIter`` (ImageNet mean and std, labels padded to
+    two objects): one epoch of ``SSD_FED_IMAGES`` images at batch
+    ``SSD_BATCH``, the first batch warm, the rest timed with the
+    iterator's decode inside; images/s beside (c)'s."""
+    ctx = mx.gpu(0)
+    rec = write_det_corpus(BUILD, SSD_FED_IMAGES, SSD_IMAGE[1:])
+    net = ssd.ssd_300_vgg16(num_classes=SSD_CLASSES)
+    net.load_parameters(str(path))
+    step = _ssd_steps(ssd, net)
+    it = mx.io.ImageDetRecordIter(
+        path_imgrec=rec, data_shape=SSD_IMAGE, batch_size=SSD_BATCH,
+        label_pad_width=2 + 2 * 5, mean_r=123.68, mean_g=116.28,
+        mean_b=103.53, std_r=58.395, std_g=57.12, std_b=57.375)
+    losses, t1, n = [], None, 0
+    for batch in it:
+        x = batch.data[0].as_in_context(ctx)
+        y = batch.label[0].as_in_context(ctx)
+        check(tuple(y.shape) == (SSD_BATCH, 2, 5),
+              f"[ssd] (e) label batch {y.shape}")
+        losses.append(float(step(x, y).asscalar()))
+        if t1 is None:
+            t1 = time.perf_counter()
+        else:
+            n += SSD_BATCH
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    check(n > 0 and all(math.isfinite(l) for l in losses),
+          f"[ssd] (e) fed losses {losses}")
+    log(f"[ssd] (e) fed from a .rec of {SSD_FED_IMAGES} JPEGs through "
+        f"ImageDetRecordIter: {n / dt:.2f} images/s over {n // SSD_BATCH} "
+        f"timed steps ({dt * 1e3 / (n // SSD_BATCH):.3f} ms a step, decode "
+        f"included) beside (c)'s synthetic {SSD_BATCH * 1e3 / train_ms:.2f}; "
+        f"losses {[round(l, 4) for l in losses]}; on {card}")
+
+
+def phase_ssd(bs, card):
+    """Phase 29: SSD-300 VGG16 (20 classes, 300x300, fp32, TF32 off): (a)
+    the NMS kernel against its plain version, (b) served through
+    ``detect``, (c) trained (``bench_ssd_train``'s b8) with its parity,
+    (d) its b8_amp variant, (e) fed from a ``.rec``.  No BatchNorm: zero
+    bn-stats launches.  Returns the NMS kernel's record."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import contrib_ops as co
+    from mxnet_tpu_torch.ops import nms
+    t_start = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    bn_before = bs.bn_stats.launches
+    net, path = _ssd_net(mx, ssd)
+    record = _ssd_nms_kernel(nms, co, net, card)
+    record["launches"] = _ssd_serve(mx, ssd, nms, net, path, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) trained: parity at batch 2, then the b8 run timed and profiled
+    cpu_s = _ssd_parity(ssd, path)
+    rng = np.random.RandomState(34)
+    x = torch.from_numpy(rng.rand(SSD_BATCH, *SSD_IMAGE)
+                         .astype("float32")).cuda()
+    lab = torch.from_numpy(_ssd_labels(rng, SSD_BATCH)).cuda()
+    net = ssd.ssd_300_vgg16(num_classes=SSD_CLASSES)
+    net.load_parameters(str(path))
+    step = functools.partial(_ssd_steps(ssd, net), x, lab)
+    train_ms, _, _ = _ssd_timed(step, "[ssd] (c) trained fp32 (TF32 off)",
+                                card)
+    _ssd_profile(step, train_ms, x, lab, net, card)
+    del net, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) b8_amp
+    net = ssd.ssd_300_vgg16(num_classes=SSD_CLASSES)
+    net.load_parameters(str(path))
+    amp.init()
+    try:
+        with torch.no_grad():
+            dtype = net(x)[0].dtype
+        check(dtype == torch.bfloat16,
+              f"[ssd] (d) the class head gives {dtype} under AMP")
+        step = functools.partial(_ssd_steps(ssd, net, amp_on=True), x,
+                                 lab)
+        amp_ms, _, _ = _ssd_timed(step, "[ssd] (d) trained AMP bf16", card)
+    finally:
+        amp.deinit()
+    log(f"[ssd] (d) AMP step {amp_ms:.3f} ms against (c)'s fp32 "
+        f"{train_ms:.3f} ms ({train_ms / amp_ms:.2f}x); the convolutions' "
+        f"outputs bf16")
+    del net, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _ssd_fed(mx, ssd, path, card, train_ms)
+    check(bs.bn_stats.launches == bn_before,
+          f"[ssd] {bs.bn_stats.launches - bn_before} bn-stats launches in "
+          f"phase 29 (SSD has no BatchNorm)")
+    wall = time.perf_counter() - t_start
+    log(f"[ssd] phase 29 wall time {wall:.1f} s, of which {cpu_s:.1f} s the "
+        f"CPU plain training runs; 0 bn-stats launches")
+    return record
+
 T_START = time.perf_counter()
 
 
@@ -5290,9 +5916,11 @@ def main():
         phase_decode(card)
     # slice 18: the rest of the vision model zoo
     bn.update(phase_zoo(bs, card))
+    # slice 19: SSD-300 detection
+    nms_record = phase_ssd(bs, card)
     log(f"[smoke] wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [record, rtc_record, bn, bn_cl, dec_rowdot,
-                                  dec_attention]}), flush=True)
+                                  dec_attention, nms_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

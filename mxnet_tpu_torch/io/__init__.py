@@ -4,8 +4,8 @@
 from .io import (DataBatch, DataDesc, DataIter,  # noqa: F401
                  DevicePrefetchIter, NDArrayIter, PrefetchingIter,
                  ResizeIter)
-from .iterators import (CSVIter, ImageRecordIter,  # noqa: F401
-                        LibSVMIter, MNISTIter)
+from .iterators import (CSVIter, ImageDetRecordIter,  # noqa: F401
+                        ImageRecordIter, LibSVMIter, MNISTIter)
 from .pipeline import (BatchDecodeError, DecodeSpec,  # noqa: F401
                        ProcessDecodePool, RecordShardSampler)
 from .shm_ring import ShmRing  # noqa: F401

@@ -1,6 +1,6 @@
 """Dataset iterators (the port's copy of ``mxnet_tpu/io/iterators.py``, the
 ``src/io/`` layer rebuilt in Python): ``CSVIter``, ``MNISTIter``,
-``LibSVMIter`` and ``ImageRecordIter``.
+``LibSVMIter``, ``ImageRecordIter`` and ``ImageDetRecordIter``.
 
 Batches are host batches, as MXNet's iterators give them: CPU NDArrays,
 pinned when a GPU is visible (``io.host_array``), which the training loop
@@ -18,9 +18,9 @@ leaves the crop, mirror and normalisation to :attr:`augmenter`, the
 device prologue (``image.DeviceAugmenter``): workers decode to a uint8
 canvas and the batch carries ``augment_flip``/``augment_crop``.
 
-Not ported here: ``ImageDetRecordIter`` (ROADMAP.md item 11, with
-``image/detection.py``), and the fault-injection sites and the
-``MXNET_SANITIZE=slots`` registration of zero-copy views (item 10).
+Not ported here: the fault-injection sites and the
+``MXNET_SANITIZE=slots`` registration of zero-copy views (ROADMAP.md
+item 10).
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ from ..ndarray import NDArray
 from ..telemetry import bus as _tel
 from .io import DataBatch, DataDesc, DataIter, host_array, pinned_empty
 
-__all__ = ["CSVIter", "MNISTIter", "ImageRecordIter", "LibSVMIter"]
+__all__ = ["CSVIter", "MNISTIter", "ImageRecordIter", "LibSVMIter",
+           "ImageDetRecordIter"]
 
 
 def _maybe_parse_shape(s):
@@ -572,3 +573,43 @@ def _scan_offsets(path):
     finally:
         rec.close()
     return offsets
+
+
+def ImageDetRecordIter(path_imgrec=None, data_shape=None, batch_size=1,
+                       path_imgidx=None, shuffle=False, label_pad_width=None,
+                       label_pad_value=-1.0, max_objects=None, **kwargs):
+    """Detection record iterator (reference ``ImageDetRecordIter``,
+    src/io/iter_image_det_recordio.cc): ``.rec`` packs whose headers carry
+    ``[header_width, obj_width, cls, x1, y1, x2, y2, ...]`` labels.
+
+    A front for :class:`mxnet_tpu_torch.image.ImageDetIter` with the
+    record iterators' argument convention: ``label_pad_width`` (the whole
+    padded label, 2 + max_objects * 5 in the reference) sets
+    ``max_objects``; ``mean_r/g/b`` and ``std_r/g/b`` normalise per
+    channel; any other argument the iterator does not know raises.
+    """
+    from ..image import ImageDetIter
+    if max_objects is None:
+        max_objects = max((int(label_pad_width) - 2) // 5, 1) \
+            if label_pad_width else 8
+    shape = _maybe_parse_shape(data_shape)
+    aug_kwargs = {k: v for k, v in kwargs.items()
+                  if k in ("resize", "rand_crop", "rand_mirror",
+                           "mean", "std")}
+    mean_rgb = [kwargs.pop(k, 0.0) for k in ("mean_r", "mean_g", "mean_b")]
+    std_rgb = [kwargs.pop(k, 1.0) for k in ("std_r", "std_g", "std_b")]
+    if any(v != 0.0 for v in mean_rgb):
+        aug_kwargs["mean"] = np.asarray(mean_rgb, np.float32)
+    if any(v != 1.0 for v in std_rgb):
+        aug_kwargs["std"] = np.asarray(std_rgb, np.float32)
+    known = {"round_batch", "preprocess_threads", "seed", "verbose",
+             "part_index", "num_parts"}
+    unknown = set(kwargs) - known - set(aug_kwargs)
+    if unknown:
+        raise TypeError(f"ImageDetRecordIter: unsupported arguments "
+                        f"{sorted(unknown)}")
+    return ImageDetIter(batch_size=int(batch_size), data_shape=shape,
+                        path_imgrec=path_imgrec, path_imgidx=path_imgidx,
+                        shuffle=shuffle, max_objects=max_objects,
+                        label_pad_value=float(label_pad_value),
+                        **aug_kwargs)

@@ -15,6 +15,7 @@ from . import registry  # noqa: F401
 from . import elemwise, broadcast_reduce, matrix  # noqa: F401
 from . import nn, random_ops, init_ops, optimizer_ops  # noqa: F401
 from . import image_ops  # noqa: F401
+from . import contrib_ops  # noqa: F401
 from . import flash_attention as _fa
 from ..base import parse_bool
 from .registry import get, list_ops, register, require  # noqa: F401

@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "flash_attention.cu",
            _PKG / "csrc" / "bn_stats.cu",
            _PKG / "csrc" / "rowdot.cu",
-           _PKG / "csrc" / "paged_attention.cu")
+           _PKG / "csrc" / "paged_attention.cu",
+           _PKG / "csrc" / "nms.cu")
 BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -99,6 +100,10 @@ def bind(lib):
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p]
     lib.mxt_paged_attention.restype = ctypes.c_int
+    lib.mxt_nms.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float] + \
+        [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.mxt_nms.restype = ctypes.c_int
     lib.mxt_paged_attention_chunk.argtypes = []
     lib.mxt_paged_attention_chunk.restype = ctypes.c_int
     lib.mxt_error_string.argtypes = [ctypes.c_int]

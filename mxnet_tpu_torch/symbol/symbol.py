@@ -706,6 +706,8 @@ def _num_outputs_of(op, attrs, n_inputs):
         return len(parse_tuple(attrs.get("indices", ())) or ()) + 1
     if name == "moments":
         return 2
+    if name == "_contrib_MultiBoxTarget":
+        return 3
     if name in ("topk", "histogram"):
         return 2 if name == "histogram" or attrs.get("ret_typ") == "both" \
             else 1

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 
 __all__ = ["Case", "OP_CASES", "RANDOM_CASES", "UPDATE_OPS", "IMAGE_CASES",
+           "DETECTION_CASES",
            "IMAGE_RANDOM_CASES", "image_random_outcome_ok", "make_inputs",
            "run_case", "compare", "tolerance", "case_id",
            "structural_params", "with_gpus_hidden"]
@@ -714,6 +715,61 @@ IMAGE_RANDOM_CASES = [
      "finite"),
 ]
 
+
+# ------------------------------------------------------------ detection
+# the detection operators of ``ops/contrib_ops.py`` (kept out of OP_CASES
+# for the reason IMAGE_CASES is): boxes with x2 > x1 and y2 > y1, scores
+# rounded so that they tie, labels padded with -1 rows.  The values that
+# go through exp or log (the targets' offsets, the decoded boxes) are not
+# exact across backends; ids, scores, order, masks and class targets are
+_DET = np.random.RandomState(19)
+
+
+def _det_boxes(*shape, scale=0.4):
+    b = _DET.rand(*shape, 4).astype("float32")
+    b[..., 2:] = b[..., :2] + _DET.rand(*shape, 2).astype("float32") * scale
+    return b
+
+
+_DET_ROWS = np.concatenate(
+    [_DET.randint(0, 3, (2, 60, 1)).astype("float32"),
+     np.round(_DET.rand(2, 60, 1), 1).astype("float32"),
+     _det_boxes(2, 60)], axis=-1)
+_DET_ANCHORS = np.concatenate(
+    [np.stack(np.meshgrid(np.arange(6), np.arange(6), indexing="ij"), -1)
+     .reshape(-1, 2)[:, ::-1] / 6.0 + 1 / 12.0] * 2, axis=-1) \
+    .astype("float32")[None]
+_DET_ANCHORS[..., :2] -= 0.15
+_DET_ANCHORS[..., 2:] += 0.15
+_DET_LABELS = np.full((2, 3, 5), -1, "float32")
+_DET_LABELS[:, :2, 0] = _DET.randint(0, 3, (2, 2))
+_DET_LABELS[:, :2, 1:3] = _DET.uniform(0.1, 0.5, (2, 2, 2))
+_DET_LABELS[:, :2, 3:] = _DET_LABELS[:, :2, 1:3] + 0.35
+_DET_LOGITS = _DET.randn(2, 4, 36).astype("float32")
+_DET_PROBS = (np.exp(_DET_LOGITS) / np.exp(_DET_LOGITS).sum(1, keepdims=True)
+              ).astype("float32")
+DETECTION_CASES = [
+    Case("_contrib_box_iou", (_det_boxes(5), _det_boxes(7))),
+    Case("_contrib_box_iou", (_det_boxes(2, 5), _det_boxes(2, 4)),
+         {"format": "center"}),
+    Case("_contrib_box_nms", (_DET_ROWS,), {"overlap_thresh": 0.3,
+                                            "id_index": 0, "topk": 40},
+         exact=True),
+    Case("_contrib_box_nms", (_DET_ROWS,), {"force_suppress": True,
+                                            "id_index": 0,
+                                            "valid_thresh": 0.2},
+         exact=True),
+    Case("_contrib_bipartite_matching", (("u", (2, 4, 6), 0, 1),),
+         {"threshold": 0.3}, grad=False, exact=True),
+    Case("_contrib_MultiBoxPrior", (("n", (1, 2, 5, 4)),),
+         {"sizes": (0.3, 0.5), "ratios": (1, 2, 0.5), "clip": True},
+         exact=True),
+    Case("_contrib_MultiBoxTarget", (_DET_ANCHORS, _DET_LABELS, _DET_LOGITS),
+         {"negative_mining_ratio": 3.0}, grad=False),
+    Case("_contrib_MultiBoxDetection", (_DET_PROBS, ("n", (2, 144)),
+                                        _DET_ANCHORS),
+         {"nms_threshold": 0.45, "nms_topk": 20}, grad=False),
+]
 
 def image_random_outcome_ok(kind, x, y):
     """Whether ``y`` is an outcome the random image op of ``kind`` may give

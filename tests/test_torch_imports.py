@@ -12,7 +12,7 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import context, rtc
 from mxnet_tpu_torch.gluon.model_zoo import get_model
-from mxnet_tpu_torch.models import get_bert_model
+from mxnet_tpu_torch.models import get_bert_model, ssd
 from mxnet_tpu_torch.serving import ModelRuntime
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -60,7 +60,10 @@ def test_port_imports_with_jax_blocked():
             "mxnet_tpu_torch.model, mxnet_tpu_torch.callback, "
             "mxnet_tpu_torch.contrib.amp, "
             "mxnet_tpu_torch.contrib.amp.loss_scaler, "
-            "mxnet_tpu_torch.contrib.amp.lists\n"
+            "mxnet_tpu_torch.contrib.amp.lists, "
+            "mxnet_tpu_torch.ops.contrib_ops, mxnet_tpu_torch.ops.nms, "
+            "mxnet_tpu_torch.models.ssd, mxnet_tpu_torch.image.detection\n"
+            "from mxnet_tpu_torch.io import ImageDetRecordIter\n"
             "s = mxnet_tpu_torch.sym.FullyConnected("
             "mxnet_tpu_torch.sym.var('data'), num_hidden=2)\n"
             "s.simple_bind(ctx=mxnet_tpu_torch.cpu(), data=(1, 3)).forward()\n"
@@ -93,6 +96,17 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
         ModelRuntime(resnet, (3, 224, 224), max_batch=8, warm=False)
     ModelRuntime(resnet, (3, 224, 224), max_batch=8, warm=False,
                  device="cpu")
+
+    # SSD and its operators: the model, and detection on arrays made on
+    # the current context
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssd.ssd_300_vgg16()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssd.VGG16Base()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.nd.contrib.MultiBoxPrior(mx.nd.zeros((1, 3, 4, 4)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.nd.contrib.box_nms(mx.nd.array([[0, 0.9, 0, 0, 1, 1]]))
 
     # mx.rtc names what it lacks: the toolkit's NVRTC or the driver where
     # they are absent, else the device
@@ -129,3 +143,26 @@ def test_contexts_name_torch_devices():
     assert context.as_device(context.cpu()) == torch.device("cpu")
     assert context.as_device("cpu") == torch.device("cpu")
     assert context.gpu(0) == context.gpu(0) != context.cpu(0)
+
+
+def test_detection_batches_are_host_batches_moved_to_the_card(
+        monkeypatch, tmp_path):
+    """``ImageDetRecordIter`` gives host batches (CPU NDArrays, as MXNet's
+    iterators do); moving one to the current context, as a training loop
+    does, raises for want of a device."""
+    import numpy as np
+    from mxnet_tpu_torch import recordio
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rec = str(tmp_path / "det.rec")
+    w = recordio.MXRecordIO(rec, "w")
+    label = np.array([2, 5, 1, 0.1, 0.2, 0.5, 0.6], "float32")
+    w.write(recordio.pack_img(recordio.IRHeader(0, label, 0, 0),
+                              np.zeros((8, 8, 3), np.uint8), img_fmt=".png"))
+    w.close()
+    batch = next(iter(mx.io.ImageDetRecordIter(
+        path_imgrec=rec, data_shape=(3, 8, 8), batch_size=1,
+        label_pad_width=12)))
+    assert batch.data[0].context == batch.label[0].context == mx.cpu()
+    assert batch.label[0].shape == (1, 2, 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.data[0].as_in_context(mx.current_context())
